@@ -9,25 +9,43 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
-2. the kernel build: ``csrc/sparse_core.cu`` compiled for sm_90a by nvcc;
-3. kernel vs plain on the card: the sparse-core kernel and its plain PyTorch
-   version on the same seeded operands, at the bench shape (n=32768,
-   S=512, f=3) and at n=1024, S=256 — all five outputs bit-equal; kernel
-   and plain times and the bound (bytes moved and int32 operations);
-4. card vs CPU: a 60-tick trajectory (n=1024, S=256: FD every 2 ticks,
-   SYNC every 10, suspicion 12, 10% loss, chunks of 12) run on the card and
-   on the CPU — every state leaf and every counter equal after every chunk;
-5. the main path: the sparse engine at n=32768, S=512 under 5% loss, one
-   warm-up and four timed 48-tick chunks with collect=False (240 ticks, so
-   the SYNC at tick 150 and five write-back boundaries run at full width),
-   with the kernel launched on every tick; then one collect=True chunk;
-6. the kernel table as one JSON line, and the device line last.
+2. the kernel builds: ``csrc/sparse_core.cu`` and ``csrc/tick_core.cu``
+   compiled for sm_90a, one nvcc each, both at once;
+3. sparse kernel vs plain on the card: the sparse-core kernel and its plain
+   PyTorch version on the same seeded operands, at the bench shape
+   (n=32768, S=512, f=3) and at n=1024, S=256 — all five outputs
+   bit-equal; kernel and plain times and the bound (bytes moved and int32
+   operations);
+4. sparse card vs CPU: a 60-tick trajectory (n=1024, S=256: FD every 2
+   ticks, SYNC every 10, suspicion 12, 10% loss, chunks of 12) run on the
+   card and on the CPU — every state leaf and every counter equal after
+   every chunk;
+5. the sparse main path: n=32768, S=512 under 5% loss, one warm-up and four
+   timed 48-tick chunks with collect=False (240 ticks, so the SYNC at tick
+   150 and five write-back boundaries run at full width), the kernel
+   launched on every tick; then one collect=True chunk;
+6. dense kernel vs plain on the card: the tick-core kernel and its plain
+   version on seeded operands at n=10240 and n=256 (f=3) — all six outputs
+   bit-equal; times and the bound;
+7. dense card vs CPU: a 60-tick trajectory (n=256, the fused core, FD
+   every 2 ticks, SYNC every 10, suspicion 12, 10% loss, member 5 killed
+   and restarted at tick 24 so the joining slow path runs, chunks of 12)
+   — every state leaf and every metric equal after every chunk;
+8. the dense main path: n=10240, LAN preset, fused core, 5% loss, one
+   warm-up and four timed 40-tick chunks with collect=False (200 ticks;
+   the kernel launched on every tick but the SYNC tick 150); then one
+   collect=True chunk;
+9. the kernel table as one JSON line, the card's name and power limit,
+   and the device line last.
 
-There is no CPU fallback: without a CUDA device the script fails.
+Each main path runs with every kernel count set to 0 just before it and
+read just after. There is no CPU fallback: without a CUDA device the
+script fails.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -58,6 +76,20 @@ OPS_PER_DELIVERY = 7
 #: Per young delivered record: the best_any max 1, the alive-key test 7,
 #: the best_alive max and its select 2.
 OPS_PER_YOUNG_DELIVERY = 10
+#: Integer operations of csrc/tick_core.cu's kernel body, counted the same
+#: way. Per cell: the diagonal test and exclusion 3, the FD cell test and
+#: its two selects 3, the merge lattice with the dead-row freeze 25, the
+#: countdown / DEAD transition / aging / tombstone / countdown refill 51,
+#: rows_next and the known_cnt term 10.
+DENSE_OPS_PER_CELL = 3 + 3 + 25 + 51 + 10
+#: Per (cell, channel): the edge test.
+DENSE_OPS_PER_EDGE_TEST = 1
+#: Per delivered (cell, channel): the sender's FD cell test and select 2,
+#: the best_any max 1, the alive-key test 7, the best_alive max 2.
+DENSE_OPS_PER_DELIVERY = 12
+#: Bytes per cell that csrc/tick_core.cu moves at f=3: the 3 sender rows
+#: (int32) read for every cell, view0, age, susp read, four outputs written.
+DENSE_KERNEL_BYTES_PER_CELL = 3 * 4 + 4 + 1 + 2 + 4 + 1 + 2 + 4
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
@@ -85,11 +117,15 @@ def phase_card(torch):
 
 
 def phase_build():
-    from scalecube_cluster_tpu_torch.ops import sparse_core as sc
+    from scalecube_cluster_tpu_torch.ops import cuda_build, sparse_core, tick_core
 
+    libraries = [sparse_core.LIBRARY, tick_core.LIBRARY]
     t0 = time.perf_counter()
-    sc.build_library()
-    say(f"[2] built {sc._SOURCE.name} for sm_90a in {time.perf_counter() - t0:.2f} s")
+    cuda_build.compile_all(libraries)
+    for lib in libraries:
+        lib.load()
+    names = ", ".join(lib.source.name for lib in libraries)
+    say(f"[2] built {names} for sm_90a in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
 
 
 def _time_cuda(torch, fn, reps):
@@ -249,25 +285,41 @@ def phase_card_vs_cpu(torch):
     )
 
 
+def _kernel_wrappers():
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
+
+    return {"sparse_core": sparse_core, "tick_core": tick_core}
+
+
+def reset_counts():
+    for wrapper in _kernel_wrappers().values():
+        wrapper.launches = 0
+
+
+def read_counts():
+    return {name: wrapper.launches for name, wrapper in _kernel_wrappers().items()}
+
+
 def phase_main_path(torch):
     import numpy as np
 
     from scalecube_cluster_tpu_torch.bench import measure_sparse
-    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
     from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
     from scalecube_cluster_tpu_torch.sim.sparse import SparseParams, run_sparse_chunked
 
     n, s, chunk, reps = 32768, 512, 48, 4
     torch.cuda.reset_peak_memory_stats()
-    sparse_core.launches = 0
+    reset_counts()
     row, state = measure_sparse(n, s, chunk=chunk, reps=reps)
-    launches = sparse_core.launches
+    counts = read_counts()
+    launches = counts["sparse_core"]
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     expect = (reps + 1) * chunk
     say(
         f"[5] main path n={n} S={s}: {row['ms_per_tick']:.3f} ms/tick, "
         f"{row['member_rounds_per_s']:.1f} member·rounds/s, peak device memory "
-        f"{peak_gib:.3f} GiB, sparse_core.launches == {launches} (expect {expect})"
+        f"{peak_gib:.3f} GiB, launches {counts} (expect sparse_core {expect})"
     )
     if launches != expect:
         fail(f"sparse_core launched {launches} times on the main path, expected {expect}")
@@ -292,9 +344,7 @@ def phase_main_path(torch):
     # The killed member 7 is suspected or convicted by live viewers.
     s7 = int(subj_slot[7])
     rec7 = state.slab[:, s7] if s7 >= 0 else state.view_T[7, :]
-    live = state.alive.clone()
-    live[7] = False
-    flagged = int(((rec7 >= 0) & ((rec7 & 1 != 0) | (rec7 & (1 << 21) != 0)) & live).sum())
+    flagged = _flagging_viewers(state.alive, rec7, 7)
     if flagged == 0:
         fail("no live viewer suspects or convicts the killed member 7")
     say(
@@ -304,6 +354,222 @@ def phase_main_path(torch):
         f"live viewers flagging member 7: {flagged}"
     )
     return launches
+
+
+def _flagging_viewers(alive, rec, subject):
+    """Live viewers (other than ``subject``) whose record ``rec [N]`` of
+    ``subject`` is SUSPECT or DEAD."""
+    live = alive.clone()
+    live[subject] = False
+    return int(((rec >= 0) & ((rec & 1 != 0) | (rec & (1 << 21) != 0)) & live).sum())
+
+
+def dense_core_work(torch, ops):
+    """The least the dense tick core must do on these operands: the bytes
+    it must move (each [N, N] input read once, each output written once,
+    plus the vectors) and the integer operations its kernel does, the
+    delivered (cell, channel) term counted from the edge bits. Also the
+    bytes this simple kernel moves (the sender rows read for every cell)."""
+    n = ops["view0"].shape[0]
+    f = ops["ginv"].shape[0]
+    cells = n * n
+    vectors = sum(
+        t.numel() * t.element_size()
+        for k, t in ops.items() if k not in ("rows", "view0", "age", "susp")
+    )
+    per_cell = (4 + 4 + 1 + 2) + (4 + 1 + 2 + 4)  # read rows, view0, age, susp; write 4
+    bytes_moved = cells * per_cell + vectors + 2 * 4 * n  # + self_rumor, known_cnt
+    kernel_bytes = cells * DENSE_KERNEL_BYTES_PER_CELL + vectors + 2 * 4 * n
+    deliveries = int(ops["edge_ok"].sum()) * n
+    n_ops = (
+        cells * DENSE_OPS_PER_CELL
+        + f * cells * DENSE_OPS_PER_EDGE_TEST
+        + deliveries * DENSE_OPS_PER_DELIVERY
+    )
+    return bytes_moved, n_ops, kernel_bytes
+
+
+def phase_dense_kernel_vs_plain(torch):
+    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core, tick_core_reference
+    from scalecube_cluster_tpu_torch.testing import random_tick_operands
+
+    consts = dict(spread=42, sweep=86, susp_ticks=350, age_stale=120)
+    names = ("view2", "age2", "susp2", "rows_next", "self_rumor", "known_cnt")
+    rows = {}
+    for n, seed in ((10240, 1), (256, 2)):
+        f = 3
+        ops = {
+            k: torch.from_numpy(v).cuda()
+            for k, v in random_tick_operands(n, f, seed=seed, susp_ticks=350).items()
+        }
+        args = tuple(ops.values())
+        got = tick_core(*args, **consts)
+        want = tick_core_reference(*args, **consts)
+        torch.cuda.synchronize()
+        err = 0
+        for name, g, w in zip(names, got, want):
+            if g.dtype != w.dtype or g.shape != w.shape:
+                fail(f"{name} at n={n}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+            diff = int((g.long() - w.long()).abs().max())
+            err = max(err, diff)
+            if diff > TOLERANCE:
+                bad = int((g != w).sum())
+                fail(f"tick_core disagrees with plain on {name} at n={n}: {bad} cells")
+        del got, want
+        reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
+        k_ms = _time_cuda(torch, lambda: tick_core(*args, **consts), reps_k)
+        p_ms = _time_cuda(torch, lambda: tick_core_reference(*args, **consts), reps_p)
+        bytes_moved, n_ops, kernel_bytes = dense_core_work(torch, ops)
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+        row = {
+            "n": n, "f": f, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": bytes_moved, "bytes_ms": bytes_ms,
+            "int32_ops": n_ops, "ops_ms": ops_ms,
+            "kernel_bytes": kernel_bytes,
+            "kernel_bytes_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
+        }
+        rows[n] = row
+        say(
+            f"[6] tick_core n={n} f={f}: bit-equal to plain (max_abs_err {err}); "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"by {row['bound_by']} ({bytes_moved} B = {bytes_ms:.4f} ms; "
+            f"{n_ops} int32 ops = {ops_ms:.4f} ms); this kernel moves {kernel_bytes} B "
+            f"= {row['kernel_bytes_ms']:.4f} ms; library_ms null — no single PyTorch "
+            "call computes this function"
+        )
+        del ops, args
+    return rows
+
+
+def phase_dense_card_vs_cpu(torch):
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
+    from scalecube_cluster_tpu_torch.sim import state as dense
+    from scalecube_cluster_tpu_torch.sim.convert import dense_state_to_numpy
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from scalecube_cluster_tpu_torch.sim.run import run_chunked
+
+    n, ticks, chunk, restart_after = 256, 60, 12, 1
+    params = SimParams(
+        n=n, gossip_fanout=3, periods_to_spread=8, periods_to_sweep=18,
+        fd_period_ticks=2, sync_period_ticks=10, suspicion_ticks=12,
+        ping_req_members=2, user_gossip_slots=2, pallas_delivery=True,
+    )
+    runs = {}
+    card_launches = 0
+    for dev in ("cuda", "cpu"):
+        st = dense.kill(dense.init_full_view(n, user_gossip_slots=2, seed=3, device=dev), 5)
+        plan = FaultPlan.uniform(10.0, device=dev)
+        seeds = dense.seeds_mask(n, [0, 1], device=dev)
+        before = tick_core.launches
+        snaps = []
+        for c in range(ticks // chunk):
+            st, tr = run_chunked(params, st, plan, seeds, chunk, chunk=chunk)
+            snaps.append((dense_state_to_numpy(st), tr))
+            if c == restart_after:
+                st = dense.restart(st, 5)
+        if dev == "cuda":
+            card_launches = tick_core.launches - before
+        runs[dev] = snaps
+    for c, ((a, ta), (b, tb)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        if set(a) != set(b) or set(ta) != set(tb):
+            fail(f"dense card/CPU leaf or metric sets differ at chunk {c}")
+        for k in a:
+            if not np.array_equal(a[k], b[k]):
+                fail(f"dense card/CPU state leaf {k} differs after chunk {c}")
+        for k in ta:
+            if not np.array_equal(ta[k].view(np.uint8), tb[k].view(np.uint8)):
+                fail(f"dense card/CPU metric {k} differs in chunk {c}")
+    card = runs["cuda"]
+    syncs = ticks // params.sync_period_ticks
+    slow = ticks - card_launches
+    if not syncs < slow < ticks:
+        fail(f"dense card run: {card_launches} fused ticks of {ticks}; the joining "
+             f"slow path did not run beside the {syncs} SYNC ticks")
+    dead = sum(int(tr["verdicts_dead"].sum()) for _, tr in card)
+    say(
+        f"[7] dense card == CPU over {ticks} ticks at n={n} ({len(card[-1][0])} leaves, "
+        f"{len(card[-1][1])} metrics, every chunk); fused ticks {card_launches}, slow "
+        f"ticks {slow} ({syncs} SYNC, {slow - syncs} joining); verdicts_dead total {dead}; "
+        f"final convergence {float(card[-1][1]['convergence'][-1]):.6f}"
+    )
+
+
+def phase_dense_main_path(torch):
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.bench import measure_dense
+    from scalecube_cluster_tpu_torch.sim import state as dense
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from scalecube_cluster_tpu_torch.sim.run import run_chunked
+
+    n, chunk, reps = 10240, 40, 4
+    params = SimParams.from_cluster_config(n)
+    ticks = (reps + 1) * chunk
+    expect = ticks - ticks // params.sync_period_ticks
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    row, state = measure_dense(n, chunk=chunk, reps=reps)
+    counts = read_counts()
+    launches = counts["tick_core"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    cpu_share = sum(row["chunk_thread_cpu_ms_per_tick"]) / sum(row["chunk_ms_per_tick"])
+    say(
+        f"[8] dense main path n={n}: {row['ms_per_tick']:.3f} ms/tick "
+        f"(chunks {', '.join(f'{c:.3f}' for c in row['chunk_ms_per_tick'])}), "
+        f"{row['member_rounds_per_s']:.1f} member·rounds/s, peak device memory "
+        f"{peak_gib:.3f} GiB, launching thread on the CPU {cpu_share:.3f} of the wall, "
+        f"launches {counts} (expect tick_core {expect}: {ticks} ticks less the SYNC ticks)"
+    )
+    if launches != expect:
+        fail(f"tick_core launched {launches} times on the dense main path, expected {expect}")
+
+    plan = FaultPlan.uniform(loss_percent=5.0, device="cuda")
+    seeds = dense.seeds_mask(n, [0, 1], device="cuda")
+    params = dataclasses.replace(params, pallas_delivery=True)
+    state, tr = run_chunked(params, state, plan, seeds, chunk, chunk=chunk, collect=True)
+    for k, v in tr.items():
+        if v.shape[0] != chunk or not np.all(np.isfinite(v)):
+            fail(f"dense metric {k} malformed: shape {v.shape}")
+    if state.t_host != int(state.tick) or state.t_host != ticks + chunk:
+        fail(f"tick {int(state.tick)} / mirror {state.t_host}, expected {ticks + chunk}")
+    flagged = _flagging_viewers(state.alive, state.view[:, 7], 7)
+    if flagged == 0:
+        fail("no live viewer suspects or convicts the killed member 7")
+    conv = float(tr["convergence"][-1])
+    if not 0.0 < conv <= 1.0 or int(tr["n_alive"][-1]) != n - 1:
+        fail(f"dense collect chunk: convergence {conv}, n_alive {int(tr['n_alive'][-1])}")
+    say(
+        f"[8] dense collect chunk: convergence {conv:.6f}, n_suspected "
+        f"{int(tr['n_suspected'][-1])}, msgs_gossip {int(tr['msgs_gossip'].sum())}, "
+        f"msgs_fd {int(tr['msgs_fd'].sum())}, live viewers flagging member 7: {flagged}"
+    )
+    return launches
+
+
+def _kernel_entry(name, source, replaces, launches, row, checked_in):
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": source,
+        "replaces": replaces,
+        "launches": launches,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "bound_bytes_ms": row["bytes_ms"],
+        "bound_ops_ms": row["ops_ms"],
+        "library_ms": None,
+        "checked_in": checked_in,
+    }
 
 
 def main() -> int:
@@ -319,35 +585,34 @@ def main() -> int:
         fail(f"the port package is missing ({exc}); run from the repository root")
 
     t_start = time.perf_counter()
-    phase_card(torch)
+    card = phase_card(torch)
     phase_build()
     core_rows = phase_kernel_vs_plain(torch)
     phase_card_vs_cpu(torch)
-    launches = phase_main_path(torch)
+    sparse_launches = phase_main_path(torch)
+    dense_rows = phase_dense_kernel_vs_plain(torch)
+    phase_dense_card_vs_cpu(torch)
+    dense_launches = phase_dense_main_path(torch)
 
-    bench_row = core_rows[(32768, 512)]
     kernels = {
         "kernels": [
-            {
-                "name": "sparse_core",
-                "route": "cuda",
-                "source": "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
-                "replaces": "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
-                "launches": launches,
-                "max_abs_err": bench_row["max_abs_err"],
-                "ms": bench_row["ms"],
-                "plain_ms": bench_row["plain_ms"],
-                "bound_ms": bench_row["bound_ms"],
-                "bound_by": bench_row["bound_by"],
-                "bound_bytes_ms": bench_row["bytes_ms"],
-                "bound_ops_ms": bench_row["ops_ms"],
-                "library_ms": None,
-                "checked_in": ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path"],
-            }
+            _kernel_entry(
+                "sparse_core", "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
+                "scalecube_cluster_tpu/ops/pallas_sparse.py:444", sparse_launches,
+                core_rows[(32768, 512)],
+                ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path"],
+            ),
+            _kernel_entry(
+                "tick_core", "scalecube_cluster_tpu_torch/csrc/tick_core.cu",
+                "scalecube_cluster_tpu/ops/pallas_tick.py:476", dense_launches,
+                dense_rows[10240],
+                ["[6] kernel vs plain", "[7] card vs CPU", "[8] dense main path"],
+            ),
         ]
     }
-    say(f"[6] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[9] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
+    say(card)
     say(json.dumps({
         "ok": True,
         "device": {

@@ -59,6 +59,16 @@ def perm_from_structured(ginv, rots, n: int, group: int = GROUP) -> torch.Tensor
     return (group * g + (i[None, :] - rot) % group).to(torch.int32)
 
 
+def fanout_permutations(key, n: int, k: int, device):
+    """``k`` independent random permutations, the unstructured fan-out of
+    an n that is not a multiple of :data:`GROUP`: returns ``(perm, inv)``,
+    both ``[k, n]`` int32, sender i's c-th target is ``perm[c, i]`` and
+    ``inv[c, perm[c, i]] == i``."""
+    ks = prng.split(key, k)
+    perm = torch.stack([prng.permutation(ks[c], n, device) for c in range(k)])
+    return perm, torch.argsort(perm, dim=1).to(torch.int32)
+
+
 def permuted_delivery(rows, inv_perm, edge_ok) -> torch.Tensor:
     """Receiver-side gathered delivery: ``[n, M]`` per-receiver max over the
     f senders whose edge delivers, -1 where nothing arrived."""
@@ -67,3 +77,34 @@ def permuted_delivery(rows, inv_perm, edge_ok) -> torch.Tensor:
         contrib = torch.where(edge_ok[c][:, None], rows[inv_perm[c].long()], -1)
         out = torch.maximum(out, contrib)
     return out
+
+
+def permuted_delivery_two_channel(rows, channel2_mask, inv_perm, edge_ok):
+    """:func:`permuted_delivery` producing two maxes from one gather pass:
+    over every delivered record and over those passing ``channel2_mask``
+    (a callable on the gathered contributions). Returns ``(best_all,
+    best_ch2)``, both ``[n, M]``, -1 where empty."""
+    best_all = torch.full_like(rows, -1)
+    best_ch2 = torch.full_like(rows, -1)
+    for c in range(inv_perm.shape[0]):
+        contrib = torch.where(edge_ok[c][:, None], rows[inv_perm[c].long()], -1)
+        best_all = torch.maximum(best_all, contrib)
+        best_ch2 = torch.maximum(best_ch2, torch.where(channel2_mask(contrib), contrib, -1))
+    return best_all, best_ch2
+
+
+def deliver_rows_max(rows, dst, edge_ok, n: int) -> torch.Tensor:
+    """Sender i pushes its payload row to ``dst[i, c]`` on every edge c
+    whose ``edge_ok[i, c]`` holds; each receiver keeps the elementwise max
+    of what it received, -1 where nothing arrived. The reference's
+    ``segment_max`` with dropped edges routed to a pad segment ``n``: an
+    empty segment holds the dtype's minimum, and the max with -1 follows."""
+    m = rows.shape[1]
+    safe_dst = torch.where(edge_ok, dst, n).long()
+    best = torch.full((n, m), -1, dtype=rows.dtype, device=rows.device)
+    lowest = torch.iinfo(rows.dtype).min
+    for c in range(dst.shape[1]):
+        seg = torch.full((n + 1, m), lowest, dtype=rows.dtype, device=rows.device)
+        seg.scatter_reduce_(0, safe_dst[:, c, None].expand(-1, m), rows, "amax")
+        best = torch.maximum(best, seg[:n])
+    return best

@@ -25,15 +25,10 @@ The CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from scalecube_cluster_tpu_torch.ops.cuda_build import CudaLibrary
 from scalecube_cluster_tpu_torch.ops.delivery import inv_from_structured
 from scalecube_cluster_tpu_torch.ops.merge import (
     DEAD_BIT,
@@ -54,17 +49,6 @@ MAX_FANOUT = 8
 AGGR_HOLD_BIT = 0
 AGGR_SUSPECT_BIT = 1
 AGGR_DEAD_BIT = 2
-
-_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "sparse_core.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = (
-    "-gencode=arch=compute_90a,code=sm_90a",
-    "-std=c++17",
-    "-O3",
-    "-shared",
-    "-Xcompiler",
-    "-fPIC",
-)
 
 
 def sparse_core_reference(
@@ -184,54 +168,17 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
             raise ValueError(f"{name} is on {t.device}, slab on {slab.device}")
 
 
-_lib = None
-_lib_lock = threading.Lock()
+def _declare(lib: ctypes.CDLL) -> None:
+    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p
+    ]
+    lib.sparse_core_launch.restype = ctypes.c_int
+    lib.sparse_core_error_string.argtypes = [ctypes.c_int]
+    lib.sparse_core_error_string.restype = ctypes.c_char_p
 
 
-def _nvcc_path() -> str | None:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    return default if os.path.exists(default) else None
-
-
-def build_library() -> ctypes.CDLL:
-    """Compile ``csrc/sparse_core.cu`` for sm_90a (once per source content)
-    and load it. Raises ``RuntimeError`` when nvcc is missing or fails."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        nvcc = _nvcc_path()
-        if nvcc is None:
-            raise RuntimeError(
-                "sparse_core: nvcc not found; the CUDA kernel cannot be built"
-            )
-        digest = hashlib.sha256(
-            _SOURCE.read_bytes() + " ".join(_NVCC_FLAGS).encode()
-        ).hexdigest()[:12]
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = _BUILD_DIR / f"libsparse_core_{digest}.so"
-        if not so.exists():
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"sparse_core: nvcc failed ({proc.returncode}):\n"
-                    f"{proc.stdout}\n{proc.stderr}"
-                )
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [
-            ctypes.c_int
-        ] * 7 + [ctypes.c_void_p]
-        lib.sparse_core_launch.restype = ctypes.c_int
-        lib.sparse_core_error_string.argtypes = [ctypes.c_int]
-        lib.sparse_core_error_string.restype = ctypes.c_char_p
-        _lib = lib
-        return lib
+#: ``csrc/sparse_core.cu``, compiled for sm_90a and loaded at first use.
+LIBRARY = CudaLibrary("sparse_core", _declare)
 
 
 def sparse_core(
@@ -255,7 +202,7 @@ def sparse_core(
         return sparse_core_reference(*args, **consts)
     if slab.device.type != "cuda":
         raise ValueError(f"sparse_core: unsupported device {slab.device}")
-    lib = build_library()
+    lib = LIBRARY.load()
     n, s = slab.shape
     slab2 = torch.empty_like(slab)
     age2 = torch.empty_like(age)

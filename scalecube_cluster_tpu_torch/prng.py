@@ -100,6 +100,31 @@ def uniform(key, shape, device) -> torch.Tensor:
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
 
 
+def gumbel_order(key, shape, device) -> torch.Tensor:
+    """The order of ``jax.random.gumbel(key, shape)`` as int64 tensors: the
+    23 mantissa bits its uniform draw is made of.
+
+    jax's default ("low") mode returns ``-log(-log(u))`` with
+    ``u = max(tiny, m·2⁻²³)``. XLA-CPU's float32 map from ``m`` to that
+    value is strictly increasing over all 2²³ values of ``m`` (checked
+    exhaustively by ``tests/test_torch_prng.py``), so ranking by ``m``
+    ranks exactly as the Gumbel values do, equal values included, with no
+    float ``log`` whose last bit could differ between libraries."""
+    return random_bits(key, shape, device) >> 9
+
+
+def gumbel(key, shape, device) -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` in jax 0.9.0's default "low" mode:
+    ``-log(-log(uniform(minval=tiny, maxval=1)))`` in float32. The uniform
+    stage is jax's bit for bit; torch's ``log`` may differ from XLA's in the
+    last bit, which keeps the order (:func:`gumbel_order` ranks without it)."""
+    tiny = torch.finfo(torch.float32).tiny
+    fbits = ((random_bits(key, shape, device) >> 9) | 0x3F800000).to(torch.int32)
+    floats = fbits.view(torch.float32) - 1.0
+    u = torch.clamp_min(floats * (1.0 - tiny) + tiny, tiny)
+    return -torch.log(-torch.log(u))
+
+
 def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, int32)`` with static
     bounds: two 32-bit draws reduced modulo the span in wrapping uint32."""

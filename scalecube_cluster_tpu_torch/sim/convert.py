@@ -1,10 +1,11 @@
-"""Carry a sparse-engine state across packages (the port's counterpart of
-loading weights): a ``SparseState`` of the JAX package, given as a dict of
-numpy arrays keyed by field name (``rng`` included, as its ``uint32[2]``
-raw key), becomes this package's state on ``device``, and back.
+"""Carry an engine state across packages (the port's counterpart of
+loading weights): a ``SparseState`` or ``SimState`` of the JAX package,
+given as a dict of numpy arrays keyed by field name (``rng`` included, as
+its ``uint32[2]`` raw key), becomes this package's state on ``device``,
+and back.
 
-Only the fields of a fixed-shape, recorder-free state are carried; the
-reference's ``trace`` and ``live_mask`` must be absent (None).
+Only the fields of a fixed-shape, recorder-free sparse state are carried;
+the reference's ``trace`` and ``live_mask`` must be absent (None).
 """
 
 from __future__ import annotations
@@ -13,6 +14,48 @@ import numpy as np
 import torch
 
 from scalecube_cluster_tpu_torch.sim.sparse import SparseState
+from scalecube_cluster_tpu_torch.sim.state import SimState
+
+#: The dense state's tensor leaves and their dtypes.
+_DENSE_LEAVES = {
+    "view": torch.int32,
+    "rumor_age": torch.int8,
+    "suspect_left": torch.int16,
+    "rows": torch.int32,
+    "known_cnt": torch.int32,
+    "inc_self": torch.int32,
+    "epoch": torch.int32,
+    "alive": torch.bool,
+    "useen": torch.bool,
+    "uage": torch.int32,
+    "uinf": torch.bool,
+    "uflight": torch.bool,
+    "tick": torch.int32,
+}
+
+
+def _to_device(d: dict, name: str, dtype, device) -> torch.Tensor:
+    # A copy: the caller's arrays never share memory with the state.
+    host = torch.from_numpy(np.array(d[name], copy=True))
+    return host.to(device=device, dtype=dtype).contiguous()
+
+
+def _rng(d: dict) -> np.ndarray:
+    return np.asarray(d["rng"], dtype=np.uint32).reshape(2).copy()
+
+
+def dense_state_from_numpy(d: dict, device="cuda") -> SimState:
+    """Build this package's dense state from a dict of numpy arrays."""
+    fields = {name: _to_device(d, name, dt, device) for name, dt in _DENSE_LEAVES.items()}
+    return SimState(rng=_rng(d), t_host=int(np.asarray(d["tick"])), **fields)
+
+
+def dense_state_to_numpy(state: SimState) -> dict:
+    """The inverse of :func:`dense_state_from_numpy`: copies, in the
+    reference's dtypes."""
+    out = {name: np.array(getattr(state, name).cpu()) for name in _DENSE_LEAVES}
+    out["rng"] = np.asarray(state.rng, dtype=np.uint32).copy()
+    return out
 
 #: Tensor leaves and their dtypes; ``rng`` and the host tick mirror are
 #: handled apart.
@@ -47,19 +90,14 @@ def sparse_state_from_numpy(d: dict, device="cuda") -> SparseState:
         if d.get(name) is not None:
             raise ValueError(f"field {name!r} is not supported by the port")
 
-    def leaf(name, dtype):
-        # A copy: the engine updates view_T and slab in place, which must not
-        # reach the caller's arrays.
-        host = torch.from_numpy(np.array(d[name], copy=True))
-        return host.to(device=device, dtype=dtype).contiguous()
-
-    fields = {name: leaf(name, dt) for name, dt in _LEAVES.items()}
+    # Copies: the engine updates view_T and slab in place, which must not
+    # reach the caller's arrays.
+    fields = {name: _to_device(d, name, dt, device) for name, dt in _LEAVES.items()}
     fields.update(
-        {name: leaf(name, dt) if d.get(name) is not None else None
+        {name: _to_device(d, name, dt, device) if d.get(name) is not None else None
          for name, dt in _OPTIONAL.items()}
     )
-    rng = np.asarray(d["rng"], dtype=np.uint32).reshape(2).copy()
-    return SparseState(rng=rng, t_host=int(np.asarray(d["tick"])), **fields)
+    return SparseState(rng=_rng(d), t_host=int(np.asarray(d["tick"])), **fields)
 
 
 def sparse_state_to_numpy(state: SparseState) -> dict:

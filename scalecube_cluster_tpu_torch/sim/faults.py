@@ -20,6 +20,8 @@ from dataclasses import dataclass
 
 import torch
 
+from scalecube_cluster_tpu_torch import prng
+
 
 @dataclass
 class FaultPlan:
@@ -81,6 +83,36 @@ def link_pass_from(u: torch.Tensor, plan: FaultPlan, src, dst) -> torch.Tensor:
     """A message passes iff its link is unblocked and the caller's uniform
     draw ``u`` survives the loss (OutboundSettings.evaluateLoss)."""
     return ~edge_blocked(plan, src, dst) & (u >= edge_loss(plan, src, dst))
+
+
+def link_pass(key, plan: FaultPlan, src, dst) -> torch.Tensor:
+    """Sample delivery for directed links ``src → dst`` (broadcast index
+    tensors): one uniform per edge from ``key``, then :func:`link_pass_from`."""
+    shape = torch.broadcast_shapes(src.shape, dst.shape)
+    return link_pass_from(prng.uniform(key, tuple(shape), src.device), plan, src, dst)
+
+
+def link_delay_within_tick(key, plan: FaultPlan, src, dst, tick_ms) -> torch.Tensor:
+    """Sample "an exponential link delay elapses within one tick" per edge:
+    ``P = 1 - exp(-tick_ms / mean)``, always True on a delay-free link.
+    Memoryless, so re-drawing it each tick for a message still in flight
+    bins the arrival to tick granularity exactly (the dense engine's
+    delayed user gossip)."""
+    mean = edge_mean_delay(plan, src, dst)
+    p = torch.where(
+        mean > 0, 1.0 - torch.exp(-tick_ms / torch.clamp_min(mean, 1e-9)), 1.0
+    )
+    return prng.uniform(key, tuple(mean.shape), mean.device) < p
+
+
+def round_trip_in_time(key, plan: FaultPlan, legs, deadline_ms) -> torch.Tensor:
+    """:func:`round_trip_in_time_from` with one uniform per probe path
+    drawn from ``key`` at the legs' broadcast shape."""
+    shape = torch.broadcast_shapes(
+        *(torch.broadcast_shapes(s.shape, d.shape) for s, d in legs)
+    )
+    u = prng.uniform(key, tuple(shape), legs[0][0].device)
+    return round_trip_in_time_from(u, plan, legs, deadline_ms)
 
 
 def round_trip_in_time_from(u: torch.Tensor, plan: FaultPlan, legs, deadline_ms):

@@ -1,13 +1,60 @@
-"""Seeded operands for holding the sparse-core kernel against its plain
-version: shared by the parity tests and ``chip_smoke.py``. Nothing on the
-engine's path imports this module."""
+"""Seeded operands for holding the kernels against their plain versions:
+shared by the parity tests and ``chip_smoke.py``. Nothing on the engines'
+paths imports this module."""
 
 from __future__ import annotations
 
 import numpy as np
 
+from scalecube_cluster_tpu_torch.ops.delivery import GROUP
 from scalecube_cluster_tpu_torch.ops.merge import DEAD_BIT
 from scalecube_cluster_tpu_torch.ops.sparse_core import SPARSE_GROUP
+
+
+def _random_keys(rng, shape) -> np.ndarray:
+    """Record keys of every status over a few epochs and incarnations, a
+    quarter UNKNOWN."""
+    status = rng.integers(0, 3, shape)
+    inc = rng.integers(0, 4, shape)
+    epoch = rng.integers(0, 3, shape)
+    key = (epoch << 22) | np.where(status == 2, DEAD_BIT, 0) | (inc << 1)
+    key = key | np.where(status == 1, 1, 0)
+    return np.where(rng.random(shape) < 0.25, -1, key).astype(np.int32)
+
+
+def random_tick_operands(n: int, f: int = 3, seed: int = 0, susp_ticks: int = 20) -> dict:
+    """A seeded numpy operand set for ``ops.tick_core.tick_core`` that
+    reaches every case of the dense core: records of every status over a
+    few epochs (overrides, epoch introductions, sticky DEAD, tombstones),
+    UNKNOWN cells, payload rows that are young, stale or differ from the
+    view, ages at 0, at the int8 saturation (119, 120) and past the sweep,
+    countdowns at 0, 1, 2 and at ``susp_ticks``, fired FD verdicts on
+    about a third of the rows (some on the diagonal), dead receivers and
+    lost edges."""
+    rng = np.random.default_rng(seed)
+    ng = n // GROUP
+    view0 = _random_keys(rng, (n, n))
+    rows = np.where(rng.random((n, n)) < 0.5, view0, -1)
+    rows = np.where(rng.random((n, n)) < 0.1, _random_keys(rng, (n, n)), rows).astype(np.int32)
+    age = np.where(rng.random((n, n)) < 0.3, rng.choice([0, 1, 119, 120], (n, n)),
+                   rng.integers(0, 121, (n, n))).astype(np.int8)
+    susp = np.where(rng.random((n, n)) < 0.5, rng.choice([0, 1, 2, susp_ticks], (n, n)),
+                    rng.integers(0, 3 * susp_ticks, (n, n))).astype(np.int16)
+    fd_tgt = np.where(rng.random(n) < 0.35, rng.integers(0, n, n), -1).astype(np.int32)
+    diag_hit = rng.random(n) < 0.02
+    fd_tgt[diag_hit] = np.flatnonzero(diag_hit)
+    return {
+        "rows": rows,
+        "view0": view0,
+        "age": age,
+        "susp": susp,
+        "ginv": np.stack([rng.permutation(ng) for _ in range(f)]).astype(np.int32),
+        "rots": rng.integers(0, GROUP, (f, ng)).astype(np.int32),
+        "edge_ok": rng.random((f, n)) < 0.85,
+        "alive": rng.random(n) < 0.9,
+        "fd_tgt": fd_tgt,
+        "fd_key": _random_keys(rng, (n,)),
+    }
 
 
 def random_operands(n: int, s: int, f: int = 3, seed: int = 0) -> dict:
@@ -22,12 +69,7 @@ def random_operands(n: int, s: int, f: int = 3, seed: int = 0) -> dict:
     nb = n // SPARSE_GROUP
 
     def keys(shape):
-        status = rng.integers(0, 3, shape)
-        inc = rng.integers(0, 4, shape)
-        epoch = rng.integers(0, 3, shape)
-        key = (epoch << 22) | np.where(status == 2, DEAD_BIT, 0) | (inc << 1)
-        key = key | np.where(status == 1, 1, 0)
-        return np.where(rng.random(shape) < 0.25, -1, key).astype(np.int32)
+        return _random_keys(rng, shape)
 
     subj = np.full(s, -1, np.int32)
     k_active = min(n, (3 * s) // 4)

@@ -7,6 +7,7 @@ outputs compared as bit patterns). Tolerance: none (exact).
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,8 +17,10 @@ from scalecube_cluster_tpu import cluster_math as j_math
 from scalecube_cluster_tpu.cluster_api.config import ClusterConfig as JConfig
 from scalecube_cluster_tpu.ops import delivery as j_delivery
 from scalecube_cluster_tpu.ops import merge as j_merge
+from scalecube_cluster_tpu.ops import select as j_select
 from scalecube_cluster_tpu.ops.select import probe_cursor_targets as j_probe
 from scalecube_cluster_tpu.sim import faults as j_faults
+from scalecube_cluster_tpu.sim import state as j_state
 from scalecube_cluster_tpu.sim import usergossip as j_ug
 from scalecube_cluster_tpu.sim.params import SimParams as JSimParams
 from scalecube_cluster_tpu.sim.sparse import SparseParams as JSparseParams
@@ -25,9 +28,12 @@ from scalecube_cluster_tpu_torch import cluster_math as t_math
 from scalecube_cluster_tpu_torch.cluster_api.config import ClusterConfig as TConfig
 from scalecube_cluster_tpu_torch.ops import delivery as t_delivery
 from scalecube_cluster_tpu_torch.ops import merge as t_merge
+from scalecube_cluster_tpu_torch.ops import select as t_select
 from scalecube_cluster_tpu_torch.ops.select import probe_cursor_targets as t_probe
 from scalecube_cluster_tpu_torch.sim import faults as t_faults
+from scalecube_cluster_tpu_torch.sim import state as t_state
 from scalecube_cluster_tpu_torch.sim import usergossip as t_ug
+from scalecube_cluster_tpu_torch.sim.convert import dense_state_from_numpy, dense_state_to_numpy
 from scalecube_cluster_tpu_torch.sim.params import SimParams as TSimParams
 from scalecube_cluster_tpu_torch.sim.sparse import SparseParams as TSparseParams
 
@@ -219,3 +225,173 @@ def test_sim_params_match_jax(preset):
                       "in_scan_writeback", "sync_window"):
             assert getattr(jsp, field) == getattr(tsp, field), (kw, field)
         assert dataclasses.asdict(jsp.base) == dataclasses.asdict(tsp.base)
+
+
+def _candidate_masks(rng, rows, n):
+    """Masks whose rows hold 0, 1, 2, 3 and then many candidates."""
+    mask = rng.random((rows, n)) < rng.choice([0.02, 0.3, 0.9], (rows, 1))
+    for r, count in enumerate((0, 1, 2, 3)):
+        mask[r] = False
+        mask[r, rng.choice(n, count, replace=False)] = True
+    return mask
+
+
+def test_topk_tie_order_matches_lax_top_k():
+    """The port's ranking breaks ties as ``lax.top_k`` does, on orders with
+    heavy ties: equal values lower index first, masked (-inf) cells after
+    every candidate, lower index first."""
+    rng = np.random.default_rng(21)
+    for n, k in ((17, 3), (64, 1), (200, 3), (1000, 4)):
+        order = rng.integers(0, 4, (40, n))
+        mask = _candidate_masks(rng, 40, n)
+        score = jnp.where(jnp.asarray(mask), jnp.asarray(order, jnp.float32), -jnp.inf)
+        _, want = jax.lax.top_k(score, k)
+        got, valid = t_select.topk_by_order(torch.from_numpy(order), torch.from_numpy(mask), k)
+        assert _eq(want, got), (n, k)
+        assert _eq(np.take_along_axis(mask, np.asarray(want), axis=1), valid)
+
+
+@pytest.mark.parametrize("n,k", [(8, 3), (96, 1), (256, 3), (300, 2), (1024, 3)])
+def test_masked_random_topk_and_choice_match_jax(n, k):
+    """Gumbel top-k and choice: valid flags equal everywhere and the picks
+    equal (the valid ones are what the engine reads), on rows with 0, 1, 2,
+    3 and many candidates."""
+    rng = np.random.default_rng(n * 10 + k)
+    for seed in range(3):
+        key = np.array([seed, 977 * n + k], np.uint32)
+        mask = _candidate_masks(rng, 64, n)
+        jidx, jvalid = j_select.masked_random_topk(jnp.asarray(key), jnp.asarray(mask), k)
+        tidx, tvalid = t_select.masked_random_topk(key, torch.from_numpy(mask), k)
+        assert _eq(jvalid, tvalid)
+        assert np.array_equal(np.asarray(jidx)[np.asarray(jvalid)], tidx.numpy()[tvalid.numpy()])
+        assert _eq(jidx, tidx)
+        jc, jcv = j_select.masked_random_choice(jnp.asarray(key), jnp.asarray(mask))
+        tc, tcv = t_select.masked_random_choice(key, torch.from_numpy(mask))
+        assert _eq(jcv, tcv) and _eq(jc, tc)
+
+
+@pytest.mark.parametrize("n,k", [(100, 3), (37, 2), (8, 4)])
+def test_unstructured_fanout_matches_jax(n, k):
+    """fanout_permutations (the fan-out of n % 8 != 0) and its inverse."""
+    for seed in range(3):
+        key = np.array([3, seed], np.uint32)
+        jperm, jinv = j_delivery.fanout_permutations(jnp.asarray(key), n, k)
+        tperm, tinv = t_delivery.fanout_permutations(key, n, k, "cpu")
+        assert _eq(jperm, tperm) and _eq(jinv, tinv)
+
+
+def test_two_channel_delivery_and_deliver_rows_max_match_jax():
+    """permuted_delivery_two_channel (alive-key second channel) and the
+    segment-max SYNC delivery, with dropped edges and receivers that get
+    nothing or several rows."""
+    rng = np.random.default_rng(5)
+    n, m, f = 96, 40, 3
+    rows = _keys(rng, (n, m))
+    key = np.array([0, 44], np.uint32)
+    jinv, _, _ = j_delivery.fanout_permutations_structured(jnp.asarray(key), n, f)
+    tinv, _, _ = t_delivery.fanout_permutations_structured(key, n, f, "cpu")
+    edge = rng.random((f, n)) < 0.8
+    want = j_delivery.permuted_delivery_two_channel(
+        jnp.asarray(rows), j_merge.is_alive_key, jinv, jnp.asarray(edge)
+    )
+    got = t_delivery.permuted_delivery_two_channel(
+        torch.from_numpy(rows), t_merge.is_alive_key, tinv, torch.from_numpy(edge)
+    )
+    assert _eq(want[0], got[0]) and _eq(want[1], got[1])
+    for cols in (1, 2):
+        dst = rng.integers(0, n // 3, (n, cols)).astype(np.int32)
+        ok = rng.random((n, cols)) < 0.7
+        assert _eq(
+            j_delivery.deliver_rows_max(jnp.asarray(rows), jnp.asarray(dst), jnp.asarray(ok), n),
+            t_delivery.deliver_rows_max(torch.from_numpy(rows), torch.from_numpy(dst),
+                                        torch.from_numpy(ok), n),
+        )
+
+
+def test_keyed_fault_draws_match_jax():
+    """link_pass, round_trip_in_time (2 and 4 legs) and
+    link_delay_within_tick draw their uniforms from a key as jax does, over
+    compact and dense plans with and without delay."""
+    n, nrel = 48, 3
+    rng = np.random.default_rng(8)
+    src = rng.integers(0, n, n).astype(np.int32)
+    dst = rng.integers(0, n, n).astype(np.int32)
+    rel = rng.integers(0, n, (n, nrel)).astype(np.int32)
+    js, jd, jr = (jnp.asarray(x) for x in (src, dst, rel))
+    ts, td, tr = (torch.from_numpy(x) for x in (src, dst, rel))
+    col = np.arange(n, dtype=np.int32)
+    jc, tc = jnp.asarray(col), torch.from_numpy(col)
+    for i, (jp, tp) in enumerate(_plans(n, rng)):
+        key = np.array([i, 77], np.uint32)
+        jk = jnp.asarray(key)
+        assert _eq(j_faults.link_pass(jk, jp, js, jd), t_faults.link_pass(key, tp, ts, td))
+        assert _eq(j_faults.link_pass(jk, jp, js[:, None], jr),
+                   t_faults.link_pass(key, tp, ts[:, None], tr))
+        assert _eq(
+            j_faults.round_trip_in_time(jk, jp, [(js, jd), (jd, js)], 500),
+            t_faults.round_trip_in_time(key, tp, [(ts, td), (td, ts)], 500),
+        )
+        jlegs = [(js[:, None], jr), (jr, jd[:, None]), (jd[:, None], jr), (jr, js[:, None])]
+        tlegs = [(ts[:, None], tr), (tr, td[:, None]), (td[:, None], tr), (tr, ts[:, None])]
+        assert _eq(j_faults.round_trip_in_time(jk, jp, jlegs, 500),
+                   t_faults.round_trip_in_time(key, tp, tlegs, 500))
+        assert _eq(j_faults.link_delay_within_tick(jk, jp, js, jd, 200),
+                   t_faults.link_delay_within_tick(key, tp, ts, td, 200))
+        assert _eq(
+            j_faults.link_delay_within_tick(jk, jp, jc[None, :], jc[:, None], 200),
+            t_faults.link_delay_within_tick(key, tp, tc[None, :], tc[:, None], 200),
+        )
+
+
+def _jax_dense_dict(state):
+    return {f.name: np.asarray(getattr(state, f.name)) for f in dataclasses.fields(state)}
+
+
+def _same_dense(jstate, tstate, where):
+    a, b = _jax_dense_dict(jstate), dense_state_to_numpy(tstate)
+    assert set(a) == set(b), where
+    for k in a:
+        assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]), (where, k)
+
+
+@pytest.mark.parametrize("tracked", [False, True], ids=["untracked", "tracked-delay"])
+def test_dense_host_ops_match_jax(tracked):
+    """init_full_view, init_seeded and seeds_mask, then every host op of
+    sim/state.py (kill, leave, restart, update_metadata before and after a
+    leave, inject_gossip) on a mid-run state carried across by
+    sim/convert.py: every leaf equal, the input state left as it was."""
+    from scalecube_cluster_tpu.sim import run_ticks as j_run_ticks
+    from tests.test_sim import small_params
+
+    n = 64
+    kw = dict(user_gossip_slots=3, seed=4, track_infected=tracked, delay_model=tracked)
+    _same_dense(j_state.init_full_view(n, **kw), t_state.init_full_view(n, device="cpu", **kw),
+                "init_full_view")
+    _same_dense(j_state.init_seeded(n, [0, 5], **kw),
+                t_state.init_seeded(n, [0, 5], device="cpu", **kw), "init_seeded")
+    assert _eq(j_state.seeds_mask(n, [0, 5, 9]), t_state.seeds_mask(n, [0, 5, 9], device="cpu"))
+    jp = small_params(n, track_user_infected=tracked, gossip_delay_model=tracked)
+    js = j_state.inject_gossip(j_state.init_full_view(n, **kw), 2, 1)
+    js, _ = j_run_ticks(jp, j_state.kill(js, 3), j_faults.FaultPlan.uniform(10.0, 120.0),
+                        j_state.seeds_mask(n, [0]), 8)
+    ts = dense_state_from_numpy(_jax_dense_dict(js), device="cpu")
+    _same_dense(js, ts, "carried")
+    steps = [
+        ("kill", lambda s, m: m.kill(s, 7)),
+        ("leave", lambda s, m: m.leave(s, 9)),
+        ("metadata-after-leave", lambda s, m: m.update_metadata(s, 9)),
+        ("metadata", lambda s, m: m.update_metadata(s, 11)),
+        ("restart", lambda s, m: m.restart(s, 3)),
+        ("restart-again", lambda s, m: m.restart(s, 3)),
+        ("inject", lambda s, m: m.inject_gossip(s, 12, 2)),
+    ]
+    for name, op in steps:
+        before = dense_state_to_numpy(ts)
+        js, ts_new = op(js, j_state), op(ts, t_state)
+        after = dense_state_to_numpy(ts)
+        assert all(np.array_equal(before[k], after[k]) for k in before), name
+        ts = ts_new
+        _same_dense(js, ts, name)
+    exhausted = ts.replace(epoch=torch.full_like(ts.epoch, t_merge.EPOCH_MAX))
+    with pytest.raises(ValueError, match="restart epochs"):
+        t_state.restart(exhausted, 1)

@@ -81,3 +81,45 @@ def test_permutation_matches_jax(n):
         want = np.asarray(jax.random.permutation(jnp.asarray(key), n))
         got = prng.permutation(key, n, "cpu")
         assert np.array_equal(want, got.numpy()), (key, n)
+
+
+def _xla_gumbel_of_mantissa():
+    """jax's "low"-mode Gumbel transform, ``-log(-log(max(tiny, m·2⁻²³)))``,
+    evaluated by XLA on every one of the 2²³ mantissas ``m``."""
+    tiny = np.finfo(np.float32).tiny
+    m = np.arange(1 << 23, dtype=np.uint32)
+    fbits = (m | np.uint32(0x3F800000)).view(np.float32)
+
+    @jax.jit
+    def transform(fb):
+        floats = fb - jnp.float32(1.0)
+        lo, hi = jnp.float32(tiny), jnp.float32(1.0)
+        return -jnp.log(-jnp.log(jnp.maximum(lo, floats * (hi - lo) + lo)))
+
+    return np.asarray(transform(jnp.asarray(fbits)))
+
+
+def test_gumbel_order_ranks_as_jax_gumbel():
+    """The port ranks Gumbel draws by their mantissa bits. That is jax's
+    ranking exactly: XLA's map from mantissa to Gumbel value is strictly
+    increasing over all 2²³ mantissas (checked here, exhaustively), every
+    jax.random.gumbel value is that map at its draw's mantissa, and the
+    port's mantissas are jax's bits. The port's float gumbel keeps the
+    uniform stage bit for bit and is strictly increasing too (its log may
+    differ from XLA's in the last bit)."""
+    table = _xla_gumbel_of_mantissa()
+    assert np.all(np.diff(table) > 0)
+    for key in _keys()[:4]:
+        jk = jnp.asarray(key)
+        shape = (64, 300)
+        mant = (np.asarray(jax.random.bits(jk, shape)) >> 9).astype(np.int64)
+        got = prng.gumbel_order(key, shape, "cpu").numpy()
+        assert np.array_equal(got, mant)
+        want = np.asarray(jax.random.gumbel(jk, shape, jnp.float32))
+        assert np.array_equal(want.view(np.int32), table[mant].view(np.int32))
+        g = prng.gumbel(key, shape, "cpu").numpy()
+        assert g.dtype == np.float32
+        order = np.argsort(mant, axis=None, kind="stable")
+        assert np.all(np.diff(g.reshape(-1)[order]) >= 0)
+        assert np.array_equal(np.argsort(g, axis=None, kind="stable"),
+                              np.argsort(want, axis=None, kind="stable"))

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from scalecube_cluster_tpu_torch.ops import cuda_build
 from scalecube_cluster_tpu_torch.ops import sparse_core as sc
 from scalecube_cluster_tpu_torch.testing import random_operands
 
@@ -111,8 +112,8 @@ def test_cuda_wrapper_raises_when_kernel_is_absent(monkeypatch):
     no built library the wrapper raises and counts nothing."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    monkeypatch.setattr(sc, "_lib", None)
-    monkeypatch.setattr(sc, "_nvcc_path", lambda: None)
+    monkeypatch.setattr(sc.LIBRARY, "_lib", None)
+    monkeypatch.setattr(cuda_build, "nvcc_path", lambda: None)
     ops = {k: torch.from_numpy(v).cuda() for k, v in random_operands(64, 128, 3).items()}
     before = sc.sparse_core.launches
     with pytest.raises(RuntimeError, match="nvcc"):
