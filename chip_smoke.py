@@ -14,8 +14,8 @@ Phases, each of which must pass (any failure exits non-zero):
 3. sparse kernel vs plain on the card: the sparse-core kernel and its plain
    PyTorch version on the same seeded operands, at the bench shape
    (n=32768, S=512, f=3) and at n=1024, S=256 — all five outputs
-   bit-equal; kernel and plain times and the bound (bytes moved and int32
-   operations);
+   bit-equal; kernel and plain times and the bound (the larger of the
+   bytes moved and the int32 operations the function needs);
 4. sparse card vs CPU: a 60-tick trajectory (n=1024, S=256: FD every 2
    ticks, SYNC every 10, suspicion 12, 10% loss, chunks of 12) run on the
    card and on the CPU — every state leaf and every counter equal after
@@ -61,32 +61,43 @@ TOLERANCE = 0
 #: one operation each, so the INT32 rate is a quarter of it.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
-#: Integer operations of csrc/sparse_core.cu's kernel body, counted line by
-#: line (comparisons, selects, logic and arithmetic; loads, stores and
-#: address arithmetic are the bytes side). Per receiver cell: the receiver's
-#: point override 7 (2 lane tests, 4 selects, 1 or), the own-column
-#: exclusion 3, the merge lattice 25, countdown / DEAD transition / aging
-#: 41, the aggregate bits 14.
-OPS_PER_CELL = 7 + 3 + 25 + 41 + 14
-#: Per (cell, channel) on an active lane: the edge test.
+#: Integer operations the two core functions need, counted from the kernel
+#: bodies by these rules. A comparison, select, logic or arithmetic
+#: operator counts one; loads, stores and address arithmetic are the bytes
+#: side. A key's sign, DEAD and rank tests fold into one masked compare
+#: (an and and a compare). Work that depends on the row alone (its point
+#: lanes, its diagonal or own lane, its liveness, its edge bits) is charged
+#: once per row or (row, channel); what a sender sends (its point
+#: overrides, the young and alive masks of its records) once per sender
+#: cell; only the two maxima per delivered (cell, channel).
+#:
+#: Sparse core, per cell of an active lane: the merge lattice 23; the
+#: countdown, DEAD transition and aging 26; the aggregate bits 13.
+OPS_PER_ACTIVE_CELL = 23 + 26 + 13
+#: Per cell of an inactive lane: no merge; the countdown, DEAD transition
+#: and aging with no re-arm and no refill 17; the aggregate bits 13.
+OPS_PER_IDLE_CELL = 17 + 13
+#: Per sender cell on an active lane: the FD/SYNC point overrides 6, the
+#: young test 1, the alive-key test 2, the two masked payloads 3.
+OPS_PER_SENDER_CELL = 12
+#: Per row: the receiver's point lanes 7 and their two re-arm terms 2, the
+#: own lane 3, the liveness test 1. Per lane: the active test 1.
+OPS_PER_ROW = 13
+OPS_PER_LANE = 1
+#: Both cores: the edge test per (row, channel); best_any and best_alive
+#: maxima per delivered (cell, channel).
 OPS_PER_EDGE_TEST = 1
-#: Per delivered (cell, channel): the sender's point override 6, the young
-#: test 1.
-OPS_PER_DELIVERY = 7
-#: Per young delivered record: the best_any max 1, the alive-key test 7,
-#: the best_alive max and its select 2.
-OPS_PER_YOUNG_DELIVERY = 10
-#: Integer operations of csrc/tick_core.cu's kernel body, counted the same
-#: way. Per cell: the diagonal test and exclusion 3, the FD cell test and
-#: its two selects 3, the merge lattice with the dead-row freeze 25, the
-#: countdown / DEAD transition / aging / tombstone / countdown refill 51,
-#: rows_next and the known_cnt term 10.
-DENSE_OPS_PER_CELL = 3 + 3 + 25 + 51 + 10
-#: Per (cell, channel): the edge test.
-DENSE_OPS_PER_EDGE_TEST = 1
-#: Per delivered (cell, channel): the sender's FD cell test and select 2,
-#: the best_any max 1, the alive-key test 7, the best_alive max 2.
-DENSE_OPS_PER_DELIVERY = 12
+OPS_PER_DELIVERY = 2
+#: Tick core, per cell: the merge lattice 23; the countdown, DEAD
+#: transition, aging, tombstone demotion and refill 29; rows_next 2; the
+#: known_cnt term 3.
+DENSE_OPS_PER_CELL = 23 + 29 + 2 + 3
+#: Per sender cell: the FD fix-up 2, the alive-key test 2, the masked
+#: alive payload 1.
+DENSE_OPS_PER_SENDER_CELL = 5
+#: Per row: the diagonal (self-rumor and exclusion) 3, the FD cell (its
+#: test, two selects, two re-arm terms) 5, the liveness test 1.
+DENSE_OPS_PER_ROW = 9
 #: Bytes per cell that csrc/tick_core.cu moves at f=3: the 3 sender rows
 #: (int32) read for every cell, view0, age, susp read, four outputs written.
 DENSE_KERNEL_BYTES_PER_CELL = 3 * 4 + 4 + 1 + 2 + 4 + 1 + 2 + 4
@@ -141,14 +152,11 @@ def _time_cuda(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
-def core_work(torch, ops, spread):
+def core_work(ops):
     """The least the sparse core must do on these operands: the bytes it
     must move (each input read once, each output written once) and the
-    integer operations its kernel does, the data-dependent terms (active
-    lanes, edges up, young sender records) counted from the operands."""
-    from scalecube_cluster_tpu_torch.ops.delivery import inv_from_structured
-    from scalecube_cluster_tpu_torch.ops.sparse_core import SPARSE_GROUP
-
+    integer operations its function needs, the data-dependent terms (active
+    lanes, edges up) counted from the operands."""
     n, s = ops["slab"].shape
     f = ops["ginv"].shape[0]
     cells = n * s
@@ -158,24 +166,15 @@ def core_work(torch, ops, spread):
         for k, t in ops.items() if k not in ("slab", "age", "susp")
     )
     bytes_moved = 2 * cells * per_cell + vectors + 4 * n + 4 * s  # + self_rumor, aggr
-    active = ops["slot_subj"] >= 0
-    n_active = int(active.sum())
-    lanes = torch.arange(s, device=ops["slab"].device)
-    young = (
-        (ops["age"].to(torch.int32) < spread)
-        | (lanes[None, :] == ops["fd_slot"][:, None])
-        | (lanes[None, :] == ops["sy_slot"][:, None])
-    )
-    young_per_sender = (young & active[None, :]).sum(dim=1)
-    inv = inv_from_structured(ops["ginv"], ops["rots"], n, SPARSE_GROUP).long()
-    ok = ops["edge_ok"]
-    deliveries = int(ok.sum()) * n_active
-    young_deliveries = int((young_per_sender[inv] * ok).sum())
+    n_active = int((ops["slot_subj"] >= 0).sum())
+    deliveries = int(ops["edge_ok"].sum()) * n_active
     n_ops = (
-        cells * OPS_PER_CELL
-        + f * n * n_active * OPS_PER_EDGE_TEST
+        n * n_active * (OPS_PER_ACTIVE_CELL + OPS_PER_SENDER_CELL)
+        + n * (s - n_active) * OPS_PER_IDLE_CELL
         + deliveries * OPS_PER_DELIVERY
-        + young_deliveries * OPS_PER_YOUNG_DELIVERY
+        + f * n * OPS_PER_EDGE_TEST
+        + n * OPS_PER_ROW
+        + s * OPS_PER_LANE
     )
     return bytes_moved, n_ops
 
@@ -211,7 +210,7 @@ def phase_kernel_vs_plain(torch):
         reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
         k_ms = _time_cuda(torch, lambda: sparse_core(*args, **consts), reps_k)
         p_ms = _time_cuda(torch, lambda: sparse_core_reference(*args, **consts), reps_p)
-        bytes_moved, n_ops = core_work(torch, ops, consts["spread"])
+        bytes_moved, n_ops = core_work(ops)
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / INT32_OPS_PER_S * 1e3
         row = {
@@ -364,10 +363,10 @@ def _flagging_viewers(alive, rec, subject):
     return int(((rec >= 0) & ((rec & 1 != 0) | (rec & (1 << 21) != 0)) & live).sum())
 
 
-def dense_core_work(torch, ops):
+def dense_core_work(ops):
     """The least the dense tick core must do on these operands: the bytes
     it must move (each [N, N] input read once, each output written once,
-    plus the vectors) and the integer operations its kernel does, the
+    plus the vectors) and the integer operations its function needs, the
     delivered (cell, channel) term counted from the edge bits. Also the
     bytes this simple kernel moves (the sender rows read for every cell)."""
     n = ops["view0"].shape[0]
@@ -382,9 +381,10 @@ def dense_core_work(torch, ops):
     kernel_bytes = cells * DENSE_KERNEL_BYTES_PER_CELL + vectors + 2 * 4 * n
     deliveries = int(ops["edge_ok"].sum()) * n
     n_ops = (
-        cells * DENSE_OPS_PER_CELL
-        + f * cells * DENSE_OPS_PER_EDGE_TEST
-        + deliveries * DENSE_OPS_PER_DELIVERY
+        cells * (DENSE_OPS_PER_CELL + DENSE_OPS_PER_SENDER_CELL)
+        + deliveries * OPS_PER_DELIVERY
+        + f * n * OPS_PER_EDGE_TEST
+        + n * DENSE_OPS_PER_ROW
     )
     return bytes_moved, n_ops, kernel_bytes
 
@@ -419,7 +419,7 @@ def phase_dense_kernel_vs_plain(torch):
         reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
         k_ms = _time_cuda(torch, lambda: tick_core(*args, **consts), reps_k)
         p_ms = _time_cuda(torch, lambda: tick_core_reference(*args, **consts), reps_p)
-        bytes_moved, n_ops, kernel_bytes = dense_core_work(torch, ops)
+        bytes_moved, n_ops, kernel_bytes = dense_core_work(ops)
         bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
         ops_ms = n_ops / INT32_OPS_PER_S * 1e3
         row = {

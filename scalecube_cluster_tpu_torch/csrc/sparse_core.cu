@@ -30,14 +30,16 @@
 // vector the wrapper fills with -1. Each CTA loads its own fan-out indices,
 // edge bits and point lanes into shared memory; there is no scalar prefetch.
 //
-// What bounds it on the card: integer operations, not bytes. The function
-// must read 7 bytes per cell (slab i32, age i8, susp i16) and write 7: about
-// 235 MB a tick at 32768 x 512, 0.070 ms at 3.35 TB/s. This kernel reads each
-// sender window again (f x (4 + 1) B/cell more, 29 B/cell in all at f = 3),
-// which the L2 may catch. Its body does about 90 integer operations per cell
-// plus 1 to 18 per channel (counted line by line in chip_smoke.py), about
-// 115 per cell on the smoke test's operands: 0.11 ms at the card's INT32
-// rate, so the operations set the bound.
+// What bounds it on the card: bytes, narrowly. The function must read 7
+// bytes per cell (slab i32, age i8, susp i16) and write 7: about 235 MB a
+// tick at 32768 x 512, 0.070 ms at 3.35 TB/s. It needs about 62 integer
+// operations per cell of an active lane, 30 per cell of an idle lane, 12
+// per sender cell and 2 per delivered record, the point, own-lane and
+// edge tests once per row (counted in chip_smoke.py::core_work): 1.1e9 on
+// the smoke test's operands, 0.067 ms at the card's INT32 rate. This
+// kernel does more (it repeats the per-row and per-sender work in every
+// cell) and reads each sender window again (f x (4 + 1) B/cell more, 29
+// B/cell in all at f = 3), which the L2 may catch.
 //
 // Design: the simple one. One CTA per 32-row receiver block covering all S
 // lanes (N/32 CTAs), threads along S so every warp reads a row segment

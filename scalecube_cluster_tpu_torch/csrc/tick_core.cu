@@ -29,18 +29,19 @@
 // CTA loads its sender rows, FD lanes and edge bits into shared memory; there
 // is no scalar prefetch.
 //
-// What bounds it on the card: its integer operations, narrowly. The
-// function must read rows, view0 (int32), age (int8) and susp (int16) once
-// and write view2, rows_next (int32), age2 and susp2: 22 B per cell,
-// 2.31e9 B at n=10240, 0.69 ms at 3.35 TB/s. Its body does 92 integer
-// operations per cell, 1 per cell and channel and 12 per delivered record
-// (counted line by line in chip_smoke.py::dense_core_work): about 126 per
-// cell at f=3 with 85% of edges up (chip_smoke.py's seeded operands),
-// 1.32e10 at n=10240, 0.79 ms at the INT32 rate (16.75e12/s). This simple
-// kernel also moves about 30 B per cell: it reads the f=3 sender rows of
-// every cell from device memory (a sender group is read by f receiver
-// groups at different times, and the 400 MiB rows does not fit the 50 MB
-// L2).
+// What bounds it on the card: bytes. The function must read rows, view0
+// (int32), age (int8) and susp (int16) once and write view2, rows_next
+// (int32), age2 and susp2: 22 B per cell, 2.31e9 B at n=10240, 0.69 ms at
+// 3.35 TB/s. It needs about 67 integer operations per cell at f=3 with 85%
+// of edges up (chip_smoke.py's seeded operands; counted in
+// chip_smoke.py::dense_core_work): 57 per cell, 5 per sender cell, 2 per
+// delivered record, the diagonal, FD-cell and edge tests once per row.
+// That is 7.0e9 at n=10240, 0.42 ms at the INT32 rate (16.75e12/s), below
+// the bytes. This simple kernel does more (it repeats the per-row and
+// per-sender work in every cell) and moves about 30 B per cell: it reads
+// the f=3 sender rows of every cell from device memory (a sender group is
+// read by f receiver groups at different times, and the 400 MiB rows does
+// not fit the 50 MB L2).
 //
 // Design: the simple one. One CTA of 256 threads per 8-row receiver group
 // (N/8 CTAs), threads along the columns so every warp reads each row segment

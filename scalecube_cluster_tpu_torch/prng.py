@@ -113,18 +113,6 @@ def gumbel_order(key, shape, device) -> torch.Tensor:
     return random_bits(key, shape, device) >> 9
 
 
-def gumbel(key, shape, device) -> torch.Tensor:
-    """``jax.random.gumbel(key, shape)`` in jax 0.9.0's default "low" mode:
-    ``-log(-log(uniform(minval=tiny, maxval=1)))`` in float32. The uniform
-    stage is jax's bit for bit; torch's ``log`` may differ from XLA's in the
-    last bit, which keeps the order (:func:`gumbel_order` ranks without it)."""
-    tiny = torch.finfo(torch.float32).tiny
-    fbits = ((random_bits(key, shape, device) >> 9) | 0x3F800000).to(torch.int32)
-    floats = fbits.view(torch.float32) - 1.0
-    u = torch.clamp_min(floats * (1.0 - tiny) + tiny, tiny)
-    return -torch.log(-torch.log(u))
-
-
 def randint(key, shape, minval: int, maxval: int, device) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval, int32)`` with static
     bounds: two 32-bit draws reduced modulo the span in wrapping uint32."""

@@ -20,9 +20,8 @@ Control flow differs from the reference only in form, never in result:
 - the FD and SYNC cadence conds are Python branches on ``t_host``, a host
   mirror of the device tick (they depend on the tick alone);
 - "nobody joining" depends on the data: the tick reads one bool back from
-  the card. The read is issued at the top of the tick, behind the previous
-  tick's work only, and waited on just before the core, so the host
-  enqueues this tick's draws meanwhile. A SYNC tick skips it.
+  the card just before the core (a plain read, which waits for the work
+  queued before it). A SYNC tick skips it.
 
 The tick does not modify the state it is given; the fused path's outputs
 are new tensors and the diagonal writes of self-refutation go into them.
@@ -197,28 +196,6 @@ def _fd_skip(n, collect, dev):
         torch.zeros((), dtype=_I32, device=dev),
         torch.zeros((7,), dtype=_I32, device=dev) if collect else None,
     )
-
-
-class _JoiningRead:
-    """"Is any live node joining?" read back from the card without waiting
-    for work enqueued after it: the copy into pinned memory is queued now
-    and waited on in :meth:`value` (a blocking event, so the waiting thread
-    sleeps rather than spins). On the CPU the value is plain."""
-
-    def __init__(self, known_cnt: torch.Tensor, alive: torch.Tensor):
-        flag = ((known_cnt == 0) & alive).any()
-        if flag.device.type == "cuda":
-            self._host = torch.empty((), dtype=torch.bool, pin_memory=True)
-            self._host.copy_(flag, non_blocking=True)
-            self._ready = torch.cuda.Event(blocking=True)
-            self._ready.record()
-        else:
-            self._host, self._ready = flag, None
-
-    def value(self) -> bool:
-        if self._ready is not None:
-            self._ready.synchronize()
-        return bool(self._host)
 
 
 def _core_xla(params, state, plan, seeds, keys, fd_tgtm, fd_key, inv_perm, edge_ok,
@@ -416,7 +393,6 @@ def sim_tick(
     do_fd = t % params.fd_period_ticks == 0
     do_sync_tick = t % params.sync_period_ticks == 0
     joining = (state.known_cnt == 0) & alive
-    joining_read = None if do_sync_tick else _JoiningRead(state.known_cnt, alive)
 
     # ------------------------------------------------------------- 1. FD
     if do_fd:
@@ -442,7 +418,7 @@ def sim_tick(
     edge_ok = torch.stack([alive[inv_perm[c].long()] & gpass[c] for c in range(f)])
 
     # ------------------------------------------------------ 2+4. tick core
-    need_slow = do_sync_tick or joining_read.value()
+    need_slow = do_sync_tick or bool(joining.any())
     use_fused = params.pallas_delivery and structured and n % 128 == 0 and n == view0.shape[1]
     if not need_slow and use_fused:
         view2, rumor_age, suspect_left, rows_next, self_rumor, known_cnt = tick_core(
@@ -523,7 +499,9 @@ def sim_tick(
     viewer_conv = match.sum(dim=1, dtype=torch.float32) / n
     # The float32 sum taken exactly (in float64) and rounded once: the same
     # value on every device, and the reference's wherever its float32 sum
-    # is exact (for every n that is a power of two).
+    # is exact (n a power of two and n <= 4096: the partial sums K/n need
+    # up to 2·log2(n) bits). At larger n it is the exactly rounded value,
+    # which XLA's summation order need not give.
     conv_sum = (viewer_conv * alive).to(torch.float64).sum().to(torch.float32)
     convergence = conv_sum / torch.clamp_min(n_alive, 1)
     # A membership message exists when the sender has something young to

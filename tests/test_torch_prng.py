@@ -104,9 +104,7 @@ def test_gumbel_order_ranks_as_jax_gumbel():
     ranking exactly: XLA's map from mantissa to Gumbel value is strictly
     increasing over all 2²³ mantissas (checked here, exhaustively), every
     jax.random.gumbel value is that map at its draw's mantissa, and the
-    port's mantissas are jax's bits. The port's float gumbel keeps the
-    uniform stage bit for bit and is strictly increasing too (its log may
-    differ from XLA's in the last bit)."""
+    port's mantissas are jax's bits."""
     table = _xla_gumbel_of_mantissa()
     assert np.all(np.diff(table) > 0)
     for key in _keys()[:4]:
@@ -117,9 +115,5 @@ def test_gumbel_order_ranks_as_jax_gumbel():
         assert np.array_equal(got, mant)
         want = np.asarray(jax.random.gumbel(jk, shape, jnp.float32))
         assert np.array_equal(want.view(np.int32), table[mant].view(np.int32))
-        g = prng.gumbel(key, shape, "cpu").numpy()
-        assert g.dtype == np.float32
-        order = np.argsort(mant, axis=None, kind="stable")
-        assert np.all(np.diff(g.reshape(-1)[order]) >= 0)
-        assert np.array_equal(np.argsort(g, axis=None, kind="stable"),
+        assert np.array_equal(np.argsort(got, axis=None, kind="stable"),
                               np.argsort(want, axis=None, kind="stable"))
