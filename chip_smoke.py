@@ -9,8 +9,10 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit) and the torch / CUDA
    versions;
-2. the kernel builds: ``csrc/sparse_core.cu`` and ``csrc/tick_core.cu``
-   compiled for sm_90a, one nvcc each, both at once;
+2. the kernel builds: ``csrc/sparse_core.cu``, ``csrc/tick_core.cu``,
+   ``csrc/sparse_persistent.cu``, ``csrc/delivery_merge.cu`` and
+   ``csrc/probes.cu`` compiled for sm_90a, one nvcc each, all at once,
+   with the compiler's register and spill report of each kernel;
 3. sparse kernel vs plain on the card: the sparse-core kernel and its plain
    PyTorch version on the same seeded operands, at the bench shape
    (n=32768, S=512, f=3) and at n=1024, S=256 — all five outputs
@@ -35,11 +37,29 @@ Phases, each of which must pass (any failure exits non-zero):
    warm-up and four timed 40-tick chunks with collect=False (200 ticks;
    the kernel launched on every tick but the SYNC tick 150); then one
    collect=True chunk;
-9. the kernel table as one JSON line, the card's name and power limit,
-   and the device line last.
+9. persistent kernel vs plain on the card: the k-tick sparse core and
+   its plain version (k chained plain cores) at the sparse main path's
+   width (n=32768, S=512, k_max=8) for k = 1, 2, 8, and at n=1024,
+   S=256 (k_max=5) for k = 1, 3, 5 — all five outputs bit-equal; times
+   per launch and per tick and the bound;
+10. the persistent core's path: the k-sweep bench
+    (``bench.py::measure_persistent_ksweep``) at n=32768, S=512, k_max=8,
+    its rows printed; one cooperative launch per call, the library built
+    and loaded once;
+11. delivery-merge kernel vs plain on the card at n=10240, 256 and 96
+    (f=3) — both outputs bit-equal; times and the bound;
+12. the delivery-merge kernel's path: ``tools/profile_tick.py``'s ``main``
+    at n=10240 with 4 iterations and 2 timed calls a piece, the kernel
+    launched (2 + 1) x 4 times;
+13. the five card probes (``tools/probe_kernels.py``) pass, each kernel
+    equal to its plain version; their times;
+14. the dense ``convergence`` sum (XLA:CPU's tree order) on the card
+    equals the CPU's at n=10240 on seeded terms;
+15. the kernel table as one JSON line, the card's name and power limit,
+    and the device line last.
 
-Each main path runs with every kernel count set to 0 just before it and
-read just after. There is no CPU fallback: without a CUDA device the
+Each path (the main paths, the k-sweep, the profile, the probes) runs
+with every kernel count set to 0 just before it and read just after. There is no CPU fallback: without a CUDA device the
 script fails.
 """
 
@@ -101,6 +121,37 @@ DENSE_OPS_PER_ROW = 9
 #: Bytes per cell that csrc/tick_core.cu moves at f=3: the 3 sender rows
 #: (int32) read for every cell, view0, age, susp read, four outputs written.
 DENSE_KERNEL_BYTES_PER_CELL = 3 * 4 + 4 + 1 + 2 + 4 + 1 + 2 + 4
+#: Persistent core, per tick: the sparse core's terms without the points.
+#: Per cell of an active lane: the merge lattice 23; the countdown, DEAD
+#: transition and aging 26; the cold lane's unpack (2) and pack (3) 5.
+PERSIST_OPS_PER_ACTIVE_CELL = 23 + 26 + 5
+#: Per cell of an inactive lane: the countdown, DEAD transition and aging
+#: with no re-arm and no refill 17; the cold lane 5.
+PERSIST_OPS_PER_IDLE_CELL = 17 + 5
+#: Per sender cell on an active lane: the age unpack 1, the young test 1,
+#: the alive-key test 2, the two masked payloads 3.
+PERSIST_OPS_PER_SENDER_CELL = 7
+#: Per row: the own lane 3, the liveness test 1 (the edge tests per (row,
+#: channel) as in the sparse core).
+PERSIST_OPS_PER_ROW = 4
+#: The aggregate bits, per cell, on the last tick only.
+OPS_PER_AGGR_CELL = 13
+#: Bytes per cell and tick the persistent state streams between ticks
+#: while it lives in device memory: slab i32 and cold i16, read and written.
+PERSIST_STREAM_BYTES_PER_CELL = 2 * (4 + 2)
+#: Delivery + merge, per cell: the merge lattice 23, the dead-row freeze 1.
+DM_OPS_PER_CELL = 23 + 1
+#: Per sender cell: the alive-key test 2, the masked alive payload 1.
+DM_OPS_PER_SENDER_CELL = 3
+#: Per row: the diagonal (self-rumor and exclusion) 3, the liveness test 1.
+DM_OPS_PER_ROW = 4
+#: Integer operations per element of each probe's function: p_smallint's
+#: compare, min, add and select (o8), subtract, max and select (o16) and
+#: select (ov); p_accum's add; p_fdmask's compare and select; the copies
+#: (p_window2d, p_roll) none.
+PROBE_OPS_PER_ELEMENT = {
+    "p_smallint": 8, "p_window2d": 0, "p_accum": 1, "p_fdmask": 2, "p_roll": 0,
+}
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", flush=True)
@@ -128,15 +179,27 @@ def phase_card(torch):
 
 
 def phase_build():
-    from scalecube_cluster_tpu_torch.ops import cuda_build, sparse_core, tick_core
+    from scalecube_cluster_tpu_torch.ops import (
+        cuda_build,
+        delivery_merge,
+        sparse_core,
+        sparse_persistent,
+        tick_core,
+    )
+    from scalecube_cluster_tpu_torch.tools import probe_kernels
 
-    libraries = [sparse_core.LIBRARY, tick_core.LIBRARY]
+    libraries = [sparse_core.LIBRARY, tick_core.LIBRARY, sparse_persistent.LIBRARY,
+                 delivery_merge.LIBRARY, probe_kernels.LIBRARY]
     t0 = time.perf_counter()
     cuda_build.compile_all(libraries)
     for lib in libraries:
         lib.load()
     names = ", ".join(lib.source.name for lib in libraries)
     say(f"[2] built {names} for sm_90a in {time.perf_counter() - t0:.2f} s (one nvcc each, at once)")
+    for lib in libraries:
+        for line in lib.build_log.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                say(f"[2] {lib.name}: {line.strip()}")
 
 
 def _time_cuda(torch, fn, reps):
@@ -150,6 +213,30 @@ def _time_cuda(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _compare(outputs, got, want, what):
+    """Fail unless every output of ``got`` equals ``want`` (dtype, shape,
+    values); returns the largest absolute difference (0)."""
+    err = 0
+    for out, g, w in zip(outputs, got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            fail(f"{out} {what}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
+        diff = int((g.long() - w.long()).abs().max()) if g.numel() else 0
+        err = max(err, diff)
+        if diff > TOLERANCE:
+            fail(f"kernel disagrees with plain on {out} {what}: {int((g != w).sum())} cells")
+    return err
+
+
+def _bound_row(bytes_moved, n_ops):
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    return {
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "bytes": bytes_moved, "bytes_ms": bytes_ms, "int32_ops": n_ops, "ops_ms": ops_ms,
+    }
 
 
 def core_work(ops):
@@ -198,35 +285,20 @@ def phase_kernel_vs_plain(torch):
         got = sparse_core(*args, **consts)
         want = sparse_core_reference(*args, **consts)
         torch.cuda.synchronize()
-        err = 0
-        for name, g, w in zip(("slab2", "age2", "susp2", "self_rumor", "aggr"), got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                fail(f"{name} at n={n}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
-            diff = int((g.long() - w.long()).abs().max())
-            err = max(err, diff)
-            if diff > TOLERANCE:
-                bad = int((g != w).sum())
-                fail(f"kernel disagrees with plain on {name} at n={n} S={s}: {bad} cells")
+        err = _compare(("slab2", "age2", "susp2", "self_rumor", "aggr"), got, want,
+                       f"at n={n} S={s}")
         reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
         k_ms = _time_cuda(torch, lambda: sparse_core(*args, **consts), reps_k)
         p_ms = _time_cuda(torch, lambda: sparse_core_reference(*args, **consts), reps_p)
-        bytes_moved, n_ops = core_work(ops)
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-        row = {
-            "n": n, "S": s, "f": f, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": bytes_moved, "bytes_ms": bytes_ms,
-            "int32_ops": n_ops, "ops_ms": ops_ms,
-        }
+        row = {"n": n, "S": s, "f": f, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               **_bound_row(*core_work(ops))}
         rows[(n, s)] = row
         say(
             f"[3] sparse_core n={n} S={s} f={f}: bit-equal to plain (max_abs_err {err}); "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"by {row['bound_by']} ({bytes_moved} B = {bytes_ms:.4f} ms; "
-            f"{n_ops} int32 ops = {ops_ms:.4f} ms); library_ms null — no single "
-            "PyTorch call computes this function"
+            f"by {row['bound_by']} ({row['bytes']} B = {row['bytes_ms']:.4f} ms; "
+            f"{row['int32_ops']} int32 ops = {row['ops_ms']:.4f} ms); library_ms null — "
+            "no single PyTorch call computes this function"
         )
     return rows
 
@@ -285,10 +357,20 @@ def phase_card_vs_cpu(torch):
 
 
 def _kernel_wrappers():
+    from scalecube_cluster_tpu_torch.ops.delivery_merge import delivery_merge
     from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.ops.sparse_persistent import sparse_core_persistent
     from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
+    from scalecube_cluster_tpu_torch.tools.probe_kernels import PROBES
 
-    return {"sparse_core": sparse_core, "tick_core": tick_core}
+    wrappers = {
+        "sparse_core": sparse_core,
+        "tick_core": tick_core,
+        "sparse_core_persistent": sparse_core_persistent,
+        "delivery_merge": delivery_merge,
+    }
+    wrappers.update({name: probe[1] for name, probe in PROBES.items()})
+    return wrappers
 
 
 def reset_counts():
@@ -406,28 +488,15 @@ def phase_dense_kernel_vs_plain(torch):
         got = tick_core(*args, **consts)
         want = tick_core_reference(*args, **consts)
         torch.cuda.synchronize()
-        err = 0
-        for name, g, w in zip(names, got, want):
-            if g.dtype != w.dtype or g.shape != w.shape:
-                fail(f"{name} at n={n}: {g.dtype}{tuple(g.shape)} vs {w.dtype}{tuple(w.shape)}")
-            diff = int((g.long() - w.long()).abs().max())
-            err = max(err, diff)
-            if diff > TOLERANCE:
-                bad = int((g != w).sum())
-                fail(f"tick_core disagrees with plain on {name} at n={n}: {bad} cells")
+        err = _compare(names, got, want, f"of tick_core at n={n}")
         del got, want
         reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
         k_ms = _time_cuda(torch, lambda: tick_core(*args, **consts), reps_k)
         p_ms = _time_cuda(torch, lambda: tick_core_reference(*args, **consts), reps_p)
         bytes_moved, n_ops, kernel_bytes = dense_core_work(ops)
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
         row = {
             "n": n, "f": f, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": bytes_moved, "bytes_ms": bytes_ms,
-            "int32_ops": n_ops, "ops_ms": ops_ms,
+            **_bound_row(bytes_moved, n_ops),
             "kernel_bytes": kernel_bytes,
             "kernel_bytes_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
         }
@@ -435,8 +504,8 @@ def phase_dense_kernel_vs_plain(torch):
         say(
             f"[6] tick_core n={n} f={f}: bit-equal to plain (max_abs_err {err}); "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-            f"by {row['bound_by']} ({bytes_moved} B = {bytes_ms:.4f} ms; "
-            f"{n_ops} int32 ops = {ops_ms:.4f} ms); this kernel moves {kernel_bytes} B "
+            f"by {row['bound_by']} ({bytes_moved} B = {row['bytes_ms']:.4f} ms; "
+            f"{n_ops} int32 ops = {row['ops_ms']:.4f} ms); this kernel moves {kernel_bytes} B "
             f"= {row['kernel_bytes_ms']:.4f} ms; library_ms null — no single PyTorch "
             "call computes this function"
         )
@@ -553,6 +622,233 @@ def phase_dense_main_path(torch):
     return launches
 
 
+def persistent_work(ops, k):
+    """The least the persistent core must do for ``k`` ticks on these
+    operands: the bytes of its own inputs and outputs (each read or written
+    once: slab, age and susp in and out, the k ticks' tables, self-rumor
+    and aggregate), the integer operations of k plain ticks and the last
+    tick's aggregate (data-dependent terms from the operands); and the
+    bytes a design that keeps the state in device memory between ticks
+    streams (:data:`PERSIST_STREAM_BYTES_PER_CELL` per cell and tick)."""
+    n, s = ops["slab"].shape
+    f = ops["ginv"].shape[1]
+    cells = n * s
+    tables = sum(ops[k_].numel() * ops[k_].element_size() for k_ in ("ginv", "rots", "edge_ok"))
+    k_max = ops["ginv"].shape[0]
+    vectors = tables * k // k_max + sum(
+        ops[k_].numel() * ops[k_].element_size() for k_ in ("slot_subj", "alive")
+    )
+    bytes_moved = 2 * cells * (4 + 1 + 2) + vectors + 4 * n + 4 * s
+    n_active = int((ops["slot_subj"] >= 0).sum())
+    per_tick = (
+        n * n_active * (PERSIST_OPS_PER_ACTIVE_CELL + PERSIST_OPS_PER_SENDER_CELL)
+        + n * (s - n_active) * PERSIST_OPS_PER_IDLE_CELL
+        + f * n * OPS_PER_EDGE_TEST + n * PERSIST_OPS_PER_ROW + s * OPS_PER_LANE
+    )
+    deliveries = int(ops["edge_ok"][:k].sum()) * n_active
+    n_ops = k * per_tick + deliveries * OPS_PER_DELIVERY + cells * OPS_PER_AGGR_CELL
+    return bytes_moved, n_ops, k * cells * PERSIST_STREAM_BYTES_PER_CELL
+
+
+def phase_persistent_vs_plain(torch):
+    from scalecube_cluster_tpu_torch.ops.sparse_persistent import (
+        sparse_core_persistent,
+        sparse_core_persistent_reference,
+    )
+    from scalecube_cluster_tpu_torch.testing import persistent_operands
+
+    names = ("slab", "age", "susp", "self_rumor", "aggr")
+    kw = dict(spread=6, susp_ticks=20, age_stale=120, sweep=6,
+              fold=frozenset({"countdown", "wb_mask", "view_rows"}))
+    rows = {}
+    for n, s, k_max, ks in ((32768, 512, 8, (1, 2, 8)), (1024, 256, 5, (1, 3, 5))):
+        ops = {k_: torch.from_numpy(v).cuda()
+               for k_, v in persistent_operands(n, s, 3, k_max, seed=1).items()}
+        args = tuple(ops.values())
+        for k in ks:
+            got = sparse_core_persistent(*args, k, k_max=k_max, **kw)
+            want = sparse_core_persistent_reference(*args, k, k_max=k_max, **kw)
+            torch.cuda.synchronize()
+            err = _compare(names, got, want, f"at n={n} S={s} k={k}")
+            del got, want
+            reps_k, reps_p = (20, 2) if n > 4096 else (100, 10)
+            k_ms = _time_cuda(torch, lambda: sparse_core_persistent(*args, k, k_max=k_max, **kw), reps_k)
+            p_ms = _time_cuda(
+                torch, lambda: sparse_core_persistent_reference(*args, k, k_max=k_max, **kw), reps_p)
+            bytes_moved, n_ops, streamed = persistent_work(ops, k)
+            row = {"n": n, "S": s, "k": k, "k_max": k_max, "max_abs_err": err,
+                   "ms": k_ms, "ms_per_tick": k_ms / k, "plain_ms": p_ms,
+                   "grid": sparse_core_persistent.grid,
+                   "streamed_bytes": streamed,
+                   "streamed_ms": streamed / HBM_BYTES_PER_S * 1e3,
+                   **_bound_row(bytes_moved, n_ops)}
+            rows[(n, k)] = row
+            say(
+                f"[9] sparse_core_persistent n={n} S={s} k={k} (k_max {k_max}, "
+                f"{row['grid']} CTAs): bit-equal to plain (max_abs_err {err}); kernel "
+                f"{k_ms:.4f} ms = {k_ms / k:.4f} ms/tick, plain {p_ms:.4f} ms; bound "
+                f"{row['bound_ms']:.4f} ms by {row['bound_by']} ({bytes_moved} B = "
+                f"{row['bytes_ms']:.4f} ms; {n_ops} int32 ops = {row['ops_ms']:.4f} ms); "
+                f"state streamed between ticks {streamed} B = {row['streamed_ms']:.4f} ms; "
+                "library_ms null — no single PyTorch call computes this function"
+            )
+        del ops, args
+    return rows
+
+
+def phase_persistent_path(torch):
+    from scalecube_cluster_tpu_torch.bench import measure_persistent_ksweep
+    from scalecube_cluster_tpu_torch.ops import sparse_persistent
+
+    n, s, k_max, reps = 32768, 512, 8, 4
+    reset_counts()
+    sweep = measure_persistent_ksweep(n, k_max, reps=reps, slot_budget=s)
+    counts = read_counts()
+    launches = counts["sparse_core_persistent"]
+    expect = 1 + k_max * reps
+    for row in sweep:
+        say(f"[10] {json.dumps(row)}")
+    say(f"[10] k-sweep n={n} S={s} k_max={k_max}: launches {counts} (expect "
+        f"sparse_core_persistent {expect}: one warm-up, {reps} per k); library "
+        f"loads {sparse_persistent.LIBRARY.loads}")
+    if launches != expect:
+        fail(f"sparse_core_persistent launched {launches} times on the k-sweep, expected {expect}")
+    if sparse_persistent.LIBRARY.loads != 1 or not all(r["zero_recompile"] for r in sweep):
+        fail("the persistent kernel's library was built or loaded more than once")
+    if [r["k"] for r in sweep] != list(range(1, k_max + 1)) or not all(
+        r["value"] > 0 for r in sweep
+    ):
+        fail("k-sweep rows malformed")
+    return launches, sweep
+
+
+def delivery_merge_work(ops):
+    """The least the delivery + merge must do on these operands: rows and
+    local read once, merged written once (12 B per cell) plus the vectors
+    and the self-rumor; the integer operations its function needs, the
+    delivered (cell, channel) term counted from the edge bits."""
+    n = ops["view0"].shape[0]
+    f = ops["ginv"].shape[0]
+    cells = n * n
+    vectors = sum(ops[k].numel() * ops[k].element_size()
+                  for k in ("ginv", "rots", "edge_ok", "alive"))
+    bytes_moved = cells * 12 + vectors + 4 * n
+    deliveries = int(ops["edge_ok"].sum()) * n
+    n_ops = (
+        cells * (DM_OPS_PER_CELL + DM_OPS_PER_SENDER_CELL)
+        + deliveries * OPS_PER_DELIVERY
+        + f * n * OPS_PER_EDGE_TEST
+        + n * DM_OPS_PER_ROW
+    )
+    return bytes_moved, n_ops
+
+
+def phase_delivery_merge_vs_plain(torch):
+    from scalecube_cluster_tpu_torch.ops.delivery_merge import (
+        delivery_merge,
+        delivery_merge_reference,
+    )
+    from scalecube_cluster_tpu_torch.testing import random_tick_operands
+
+    fields = ("rows", "view0", "ginv", "rots", "edge_ok", "alive")
+    rows = {}
+    for n, seed in ((10240, 3), (256, 4), (96, 5)):
+        ops = {k: torch.from_numpy(v).cuda()
+               for k, v in random_tick_operands(n, 3, seed=seed).items() if k in fields}
+        args = tuple(ops[k] for k in fields)
+        got = delivery_merge(*args)
+        want = delivery_merge_reference(*args)
+        torch.cuda.synchronize()
+        err = _compare(("merged", "self_rumor"), got, want, f"at n={n}")
+        del got, want
+        reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
+        k_ms = _time_cuda(torch, lambda: delivery_merge(*args), reps_k)
+        p_ms = _time_cuda(torch, lambda: delivery_merge_reference(*args), reps_p)
+        row = {"n": n, "f": 3, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+               **_bound_row(*delivery_merge_work(ops))}
+        rows[n] = row
+        say(
+            f"[11] delivery_merge n={n} f=3: bit-equal to plain (max_abs_err {err}); "
+            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"by {row['bound_by']} ({row['bytes']} B = {row['bytes_ms']:.4f} ms; "
+            f"{row['int32_ops']} int32 ops = {row['ops_ms']:.4f} ms); library_ms null — "
+            "no single PyTorch call computes this function"
+        )
+        del ops, args
+    return rows
+
+
+def phase_delivery_merge_path(torch):
+    from scalecube_cluster_tpu_torch.tools import profile_tick
+
+    n, iters, calls = 10240, 4, 2
+    reset_counts()
+    pieces = profile_tick.main(n, iters=iters, calls=calls)
+    counts = read_counts()
+    launches = counts["delivery_merge"]
+    expect = (calls + 1) * iters
+    say(f"[12] profile_tick n={n} (iters {iters}, calls {calls}): "
+        f"{json.dumps(pieces)}; launches {counts} (expect delivery_merge {expect})")
+    if launches != expect:
+        fail(f"delivery_merge launched {launches} times on the profile path, expected {expect}")
+    if len(pieces) != 8 or not all(0.0 < ms < 1e5 for ms in pieces.values()):
+        fail(f"profile_tick pieces malformed: {pieces}")
+    return launches
+
+
+def phase_probes(torch):
+    from scalecube_cluster_tpu_torch.tools import probe_kernels as pk
+
+    reset_counts()
+    results = pk.run_probes("cuda")
+    counts = read_counts()
+    rows = {}
+    errs = {r["name"]: r["max_abs_err"] for r in results}
+    for r in results:
+        say(f"[13] {'PASS' if r['ok'] else 'FAIL'} {r['name']} ({r['title']})")
+        if not r["ok"]:
+            fail(f"probe {r['name']} failed: {r['error'] or r['max_abs_err']}")
+    for name, ops in pk.probe_inputs(0).items():
+        _, wrapper, reference, _ = pk.PROBES[name]
+        args = [torch.from_numpy(a).cuda() for a in ops]
+        k_ms = _time_cuda(torch, lambda: wrapper(*args), 200)
+        p_ms = _time_cuda(torch, lambda: reference(*args), 200)
+        outs = reference(*args)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        bytes_moved = sum(a.numel() * a.element_size() for a in (*args, *outs))
+        elements = sum(o.numel() for o in outs) if name != "p_accum" else args[0].numel()
+        # One PyTorch call computes p_accum (a row sum) and p_roll (a roll).
+        library = {"p_accum": lambda: torch.sum(args[0], dim=1, dtype=torch.int32),
+                   "p_roll": lambda: torch.roll(args[0], pk.ROLL_SHIFT, dims=0)}.get(name)
+        lib_ms = _time_cuda(torch, library, 200) if library else None
+        row = {"max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+               **_bound_row(bytes_moved, elements * PROBE_OPS_PER_ELEMENT[name])}
+        rows[name] = row
+        say(f"[13] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({bytes_moved} B)")
+    for name in pk.PROBES:
+        if counts[name] != 1:
+            fail(f"probe {name} launched {counts[name]} times on its path, expected 1")
+    return rows, counts
+
+
+def phase_convergence_sum(torch):
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.sim.tick import xla_cpu_sum_f32
+
+    n = 10240
+    rng = np.random.default_rng(0)
+    terms = (rng.integers(n // 2, n + 1, n).astype(np.float32) / np.float32(n)) * (
+        rng.random(n) < 0.95)
+    card = xla_cpu_sum_f32(torch.from_numpy(terms).cuda()).cpu()
+    cpu = xla_cpu_sum_f32(torch.from_numpy(terms))
+    if card.view(torch.int32) != cpu.view(torch.int32):
+        fail(f"convergence sum differs on the card: {float(card)!r} vs {float(cpu)!r}")
+    say(f"[14] convergence sum (XLA:CPU tree order) at n={n}: card == CPU ({float(card)!r})")
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in):
     return {
         "name": name,
@@ -567,7 +863,7 @@ def _kernel_entry(name, source, replaces, launches, row, checked_in):
         "bound_by": row["bound_by"],
         "bound_bytes_ms": row["bytes_ms"],
         "bound_ops_ms": row["ops_ms"],
-        "library_ms": None,
+        "library_ms": row.get("library_ms"),
         "checked_in": checked_in,
     }
 
@@ -584,6 +880,8 @@ def main() -> int:
     except ImportError as exc:
         fail(f"the port package is missing ({exc}); run from the repository root")
 
+    from scalecube_cluster_tpu_torch.tools.probe_kernels import PROBES
+
     t_start = time.perf_counter()
     card = phase_card(torch)
     phase_build()
@@ -593,6 +891,12 @@ def main() -> int:
     dense_rows = phase_dense_kernel_vs_plain(torch)
     phase_dense_card_vs_cpu(torch)
     dense_launches = phase_dense_main_path(torch)
+    persist_rows = phase_persistent_vs_plain(torch)
+    persist_launches, _ = phase_persistent_path(torch)
+    dm_rows = phase_delivery_merge_vs_plain(torch)
+    dm_launches = phase_delivery_merge_path(torch)
+    probe_rows, probe_counts = phase_probes(torch)
+    phase_convergence_sum(torch)
 
     kernels = {
         "kernels": [
@@ -608,9 +912,31 @@ def main() -> int:
                 dense_rows[10240],
                 ["[6] kernel vs plain", "[7] card vs CPU", "[8] dense main path"],
             ),
+            _kernel_entry(
+                "sparse_core_persistent",
+                "scalecube_cluster_tpu_torch/csrc/sparse_persistent.cu",
+                "scalecube_cluster_tpu/ops/pallas_sparse.py:867", persist_launches,
+                persist_rows[(32768, 8)],
+                ["[9] kernel vs plain (k = 1, 2, 8 at n=32768; 1, 3, 5 at n=1024)",
+                 "[10] k-sweep path"],
+            ),
+            _kernel_entry(
+                "delivery_merge", "scalecube_cluster_tpu_torch/csrc/delivery_merge.cu",
+                "scalecube_cluster_tpu/ops/pallas_tick.py:195", dm_launches,
+                dm_rows[10240],
+                ["[11] kernel vs plain (n=10240, 256, 96)", "[12] profile_tick path"],
+            ),
+            *(
+                _kernel_entry(
+                    name, "scalecube_cluster_tpu_torch/csrc/probes.cu",
+                    f"tools/probe_mosaic.py:{probe[3]}", probe_counts[name],
+                    probe_rows[name], ["[13] probe PASS, kernel vs plain"],
+                )
+                for name, probe in PROBES.items()
+            ),
         ]
     }
-    say(f"[9] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[15] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

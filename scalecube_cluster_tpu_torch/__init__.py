@@ -8,5 +8,10 @@ wrapper runs its plain PyTorch version.
 
 Ported so far: the sparse SWIM engine's bench path (``sim/sparse.py``) with
 its hand-written CUDA sparse-core kernel (``ops/sparse_core.py`` +
-``csrc/sparse_core.cu``) and everything that path draws on.
+``csrc/sparse_core.cu``); the dense engine (``sim/tick.py``) with its tick
+core (``ops/tick_core.py``); the persistent k-tick sparse core
+(``ops/sparse_persistent.py``, driven by ``bench.py --engine persistent``);
+the fused delivery + merge (``ops/delivery_merge.py``, driven by
+``tools/profile_tick.py``); the card probes (``tools/probe_kernels.py``);
+and checkpoints that cross packages (``sim/checkpoint.py``).
 """

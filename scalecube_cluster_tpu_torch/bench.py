@@ -1,6 +1,7 @@
 """The port's benches of the two engines' main paths (the twins of the JAX
 package's ``bench.py::_measure_sparse``, ladder rung 1, and
-``bench.py::_measure_dense``, its rung ``("dense", 10240, None)``).
+``bench.py::_measure_dense``, its rung ``("dense", 10240, None)``) and of
+the persistent sparse core's k-sweep.
 
 Sparse: ``SparseParams.for_n(n, slot_budget, in_scan_writeback=False)``
 with the LAN preset, ``init_sparse_full_view`` then ``kill_sparse(…, 7)``,
@@ -15,11 +16,17 @@ chunks with ``collect=False``.
 One chunk warms up; ``reps`` chunks are timed, each ending in a host fetch
 from the large view table, which waits for the whole chunk.
 
+Persistent (``bench.py::_measure_persistent_ksweep``, ``python bench.py
+--persistent-ksweep [n] [k_max]``): the persistent k-tick sparse core
+(``ops/sparse_persistent.py``) swept over launch depth k = 1..k_max on one
+build, over the seeded operands of the JAX rung (:func:`measure_persistent_ksweep`).
+
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
 [--engine sparse|dense] [n] [S] [--runs K]`` prints one JSON line per run
 of ``CLI_REPS`` timed chunks; ``--profile`` instead prints where a tick's
-time goes (:func:`profile_sparse`, :func:`profile_dense`). There is no CPU
-fallback for the measurement.
+time goes (:func:`profile_sparse`, :func:`profile_dense`). ``--engine
+persistent [n] [S] [--k-max K]`` prints one JSON row per k. There is no
+CPU fallback for the measurement.
 """
 
 from __future__ import annotations
@@ -27,12 +34,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import statistics
 import sys
 import time
 
 import torch
 
+from scalecube_cluster_tpu_torch.ops import sparse_persistent
 from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
 from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
 from scalecube_cluster_tpu_torch.sim import state as dense
@@ -47,11 +56,26 @@ from scalecube_cluster_tpu_torch.sim.sparse import (
     run_sparse_chunked,
     run_sparse_ticks,
 )
+from scalecube_cluster_tpu_torch.testing import persistent_operands
 
 #: Timed chunks per command-line run: 768 sparse ticks (640 dense), long
 #: enough to cross the SYNC ticks and many write-backs; the host-bound
 #: sparse wall still spreads by up to a quarter between runs (PERF.md §2).
 CLI_REPS = 16
+#: The JAX bench's yardstick for ``vs_baseline`` (bench.py), 1e6
+#: member·rounds/s.
+BASELINE_MEMBER_ROUNDS_PER_SEC = 1_000_000.0
+#: Peak working set of the sparse bench trajectory at n=32768
+#: (bench.py::_BENCH_PEAK_SLOTS_32768), which sizes the rung's slab width.
+_BENCH_PEAK_SLOTS_32768 = 455
+
+
+def rung_slot_budget(n: int) -> int:
+    """The JAX bench's rule-sized slab width (bench.py::_rung_slot_budget):
+    the peak working set scaled linearly in n, a 12.5% burst margin, up to
+    a multiple of 128, at least 256 — 512 at n=32768."""
+    peak = _BENCH_PEAK_SLOTS_32768 * n / 32768.0
+    return max(128 * math.ceil(peak * 1.125 / 128.0), 256)
 
 
 def _warm_main_path(n: int, slot_budget: int, chunk: int):
@@ -244,29 +268,94 @@ def profile_dense(n: int = 10240, ticks: int = 40, chunk: int = 40):
     return row
 
 
+def measure_persistent_ksweep(
+    n: int = 4096, k_max: int = 8, reps: int = 4, slot_budget: int | None = None
+) -> list[dict]:
+    """The persistent core's k-sweep (bench.py::_measure_persistent_ksweep):
+    the seeded operands of the JAX rung (numpy ``default_rng(0)``, f=3,
+    spread 6, suspicion 20, age_stale 120, sweep 6, fold ``{countdown,
+    wb_mask, view_rows}``), one warm-up launch at k_max, then ``reps``
+    launches at each k in 1..k_max, each ending in a synchronize (the JAX
+    rung's host fetch). One row per k with the JAX row's fields: ``value``
+    in member·rounds/s from the wall, ``ns_per_member``, ``launches`` (the
+    timed ones) and ``zero_recompile`` (the kernel library built and
+    loaded once for the whole sweep); also ``device_ms_per_launch`` from
+    CUDA events around each launch."""
+    s = slot_budget or rung_slot_budget(n)
+    ops = [torch.from_numpy(v).cuda() for v in persistent_operands(n, s, 3, k_max, seed=0).values()]
+    kw = dict(
+        spread=6, susp_ticks=20, age_stale=120, sweep=6, k_max=k_max,
+        fold=frozenset({"countdown", "wb_mask", "view_rows"}),
+    )
+
+    def launch(k: int):
+        return sparse_persistent.run_sparse_core_persistent(*ops, k, **kw)
+
+    launch(k_max)
+    torch.cuda.synchronize()
+    rows = []
+    for k in range(1, k_max + 1):
+        device_ms = 0.0
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            launch(k)
+            stop.record()
+            torch.cuda.synchronize()
+            device_ms += start.elapsed_time(stop)
+        dt = time.perf_counter() - t0
+        value = n * (reps * k / dt)
+        rows.append({
+            "metric": "member_gossip_rounds_per_sec",
+            "value": value,
+            "unit": "member·rounds/s",
+            "vs_baseline": value / BASELINE_MEMBER_ROUNDS_PER_SEC,
+            "ns_per_member": 1e9 / value,
+            "n_members": n,
+            "engine": "sparse-persistent-kernel",
+            "slot_budget": s,
+            "k": k,
+            "k_max": k_max,
+            "launches": reps,
+            "zero_recompile": sparse_persistent.LIBRARY.loads == 1,
+            "device_ms_per_launch": device_ms / reps,
+        })
+    return rows
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser(prog="python -m scalecube_cluster_tpu_torch.bench")
-    ap.add_argument("--engine", choices=("sparse", "dense"), default="sparse")
-    ap.add_argument("n", type=int, nargs="?", help="members (32768 sparse, 10240 dense)")
-    ap.add_argument("slot_budget", type=int, nargs="?", default=512, help="sparse only")
+    ap.add_argument("--engine", choices=("sparse", "dense", "persistent"), default="sparse")
+    ap.add_argument("n", type=int, nargs="?",
+                    help="members (32768 sparse, 10240 dense, 4096 persistent)")
+    ap.add_argument("slot_budget", type=int, nargs="?",
+                    help="slab width S (sparse 512; persistent: the JAX rung's rule)")
     ap.add_argument("--runs", type=int, default=1, help="runs, each from a fresh state")
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--k-max", type=int, default=8, help="persistent only")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
         return 2
+    meta = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
+            "cuda": torch.version.cuda}
+    if args.engine == "persistent":
+        for row in measure_persistent_ksweep(args.n or 4096, args.k_max,
+                                             slot_budget=args.slot_budget):
+            print(json.dumps({**row, **meta}), flush=True)
+        return 0
+    slot_budget = args.slot_budget or 512
     for _ in range(args.runs):
         if args.engine == "dense":
             n = args.n or 10240
             row = profile_dense(n) if args.profile else measure_dense(n, reps=CLI_REPS)[0]
         elif args.profile:
-            row = profile_sparse(args.n or 32768, args.slot_budget)
+            row = profile_sparse(args.n or 32768, slot_budget)
         else:
-            row, _ = measure_sparse(args.n or 32768, args.slot_budget, reps=CLI_REPS)
-        row["device"] = torch.cuda.get_device_name(0)
-        row["torch"] = torch.__version__
-        row["cuda"] = torch.version.cuda
-        print(json.dumps(row), flush=True)
+            row, _ = measure_sparse(args.n or 32768, slot_budget, reps=CLI_REPS)
+        print(json.dumps({**row, **meta}), flush=True)
     return 0
 
 

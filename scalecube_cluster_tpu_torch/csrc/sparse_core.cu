@@ -50,17 +50,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "swim_device.cuh"
+
 namespace {
 
 constexpr int kGroup = 32;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 256;
-constexpr int kDeadBit = 1 << 21;
-constexpr int kEpochShift = 22;
-
-__device__ __forceinline__ bool alive_key(int k) {
-  return k >= 0 && (k & kDeadBit) == 0 && (k & 1) == 0;
-}
+using swim::alive_key;
+using swim::kDeadBit;
 
 __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const int32_t* __restrict__ slab, const int8_t* __restrict__ age,
@@ -163,15 +161,7 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
       }
 
       // Merge lattice (ops/merge.py::merge_views).
-      const bool known = local >= 0;
-      const int e_local = local >> kEpochShift;
-      const int e_any = best_any >> kEpochShift;
-      const int e_alive = best_alive >> kEpochShift;
-      const bool same = known && best_any >= 0 && e_any == e_local;
-      const bool upd_same = same && (local & kDeadBit) == 0 && best_any > local;
-      const bool intro = best_alive >= 0 && (!known || e_alive > e_local);
-      int merged = upd_same ? best_any : (intro ? best_alive : local);
-      if (intro && e_alive > e_any) merged = best_alive;
+      int merged = swim::merge_key(local, best_any, best_alive);
       const bool alive_row = r_alive[r] != 0;
       if (!active || !alive_row) merged = local;
 

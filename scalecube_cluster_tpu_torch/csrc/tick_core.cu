@@ -52,18 +52,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "swim_device.cuh"
+
 namespace {
 
 constexpr int kGroup = 8;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kDeadBit = 1 << 21;
-constexpr int kEpochShift = 22;
-
-__device__ __forceinline__ bool alive_key(int k) {
-  return k >= 0 && (k & kDeadBit) == 0 && (k & 1) == 0;
-}
+using swim::alive_key;
+using swim::kDeadBit;
 
 __global__ void __launch_bounds__(kThreads) tick_core_kernel(
     const int32_t* __restrict__ rows, const int32_t* __restrict__ view0,
@@ -137,15 +135,7 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
       const int a0 = cellm ? 0 : age[off];
 
       // Merge lattice (ops/merge.py::merge_views).
-      const bool known = view1 >= 0;
-      const int e_local = view1 >> kEpochShift;
-      const int e_any = best_any >> kEpochShift;
-      const int e_alive = best_alive >> kEpochShift;
-      const bool same = known && best_any >= 0 && e_any == e_local;
-      const bool upd_same = same && (view1 & kDeadBit) == 0 && best_any > view1;
-      const bool intro = best_alive >= 0 && (!known || e_alive > e_local);
-      int merged = upd_same ? best_any : (intro ? best_alive : view1);
-      if (intro && e_alive > e_any) merged = best_alive;
+      int merged = swim::merge_key(view1, best_any, best_alive);
       const bool alive_row = r_alive[r] != 0;
       if (!alive_row) merged = view1;
 

@@ -2,7 +2,8 @@
 
 Each source has a plain C interface and is compiled for ``sm_90a`` into a
 shared library under ``build/torch_kernels/`` at the repository root, named
-by a digest of the source and the flags, then loaded with ``ctypes``.
+by a digest of the source, the headers of ``csrc/`` (``*.cuh``) and the
+flags, then loaded with ``ctypes``.
 Nothing is built or loaded when a module is imported: a kernel wrapper
 calls :meth:`CudaLibrary.load` when a CUDA tensor first reaches it, and
 :func:`compile_all` builds several sources at once (one ``nvcc`` process
@@ -28,6 +29,7 @@ NVCC_FLAGS = (
     "-shared",
     "-Xcompiler",
     "-fPIC",
+    "-Xptxas=-v",
 )
 
 
@@ -43,7 +45,9 @@ class CudaLibrary:
     """One ``csrc/<name>.cu`` source and its loaded library.
 
     ``declare(lib)`` sets the ``argtypes``/``restype`` of the library's
-    functions once it is loaded."""
+    functions once it is loaded. ``loads`` counts the shared objects this
+    process has loaded for it (1 after first use: one build serves every
+    call)."""
 
     def __init__(self, name: str, declare):
         self.name = name
@@ -51,10 +55,18 @@ class CudaLibrary:
         self._declare = declare
         self._lib = None
         self._lock = threading.Lock()
+        self.loads = 0
+        #: The compiler's report of this process's build (``-Xptxas=-v``:
+        #: registers, shared memory and spills per kernel); empty when the
+        #: shared object was already built.
+        self.build_log = ""
 
     def target(self) -> Path:
+        # Every header of csrc/ joins the digest, so a source is rebuilt
+        # when a header it may include changes.
+        headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:12]
         return BUILD_DIR / f"lib{self.name}_{digest}.so"
 
@@ -67,6 +79,7 @@ class CudaLibrary:
                 lib = ctypes.CDLL(str(self.target()))
                 self._declare(lib)
                 self._lib = lib
+                self.loads += 1
             return self._lib
 
 
@@ -96,6 +109,7 @@ def compile_all(libraries) -> None:
         if proc.returncode != 0:
             failed = failed or f"{lib.name}: nvcc failed ({proc.returncode}):\n{out}\n{err}"
         else:
+            lib.build_log = err
             os.replace(tmp, so)
     if failed:
         raise RuntimeError(failed)

@@ -1,3 +1,3 @@
 """Simulation backend (port of scalecube_cluster_tpu/sim/): N SWIM nodes as
 one dataclass of tensors over the member axis, stepped a gossip period at a
-time. Ported so far: the sparse (compact-rumor) engine's bench path."""
+time. Ported so far: the sparse and dense engines and their checkpoints."""

@@ -130,9 +130,13 @@ def slot_budget_for(
 class SparseParams:
     """Static constants: the protocol constants + working-set bounds.
 
-    The reference's ``pallas_core`` / ``pallas_fold`` switches have no
-    counterpart: the port always runs the fused core with the whole fold
-    (on the card the kernel, on the CPU its plain version)."""
+    The port always runs the fused core with the whole fold (on the card
+    the kernel, on the CPU its plain version): its states equal the
+    reference's under ``pallas_core=True`` and the whole ``pallas_fold``.
+    Under other settings the reference's protocol state is the same, but
+    its carried write-back pin mask (``wb_pinned``/``wb_valid``) is not.
+    The port carries the two switches unread, so params cross packages in
+    a checkpoint and come back unchanged (sim/checkpoint.py)."""
 
     base: SimParams
     #: Max simultaneously active subjects (the slab width S).
@@ -144,8 +148,15 @@ class SparseParams:
     #: False: the tick never touches ``view_T``; frees happen between
     #: chunks in :func:`writeback_free` (the big-n driver).
     in_scan_writeback: bool = True
+    #: The reference's kernel switch and fold pieces (carried, not read).
+    pallas_core: bool = False
+    pallas_fold: frozenset = frozenset({"countdown", "points", "wb_mask", "view_rows"})
     #: Bounded-window table SYNC width (0 disables).
     sync_window: int = 64
+
+    def __post_init__(self):
+        # A checkpoint's JSON carries the fold as a list: freeze it again.
+        object.__setattr__(self, "pallas_fold", frozenset(self.pallas_fold))
 
     @classmethod
     def for_n(

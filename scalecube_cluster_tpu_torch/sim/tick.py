@@ -110,6 +110,34 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
     return mask.sum(dtype=_I32)
 
 
+#: Window of XLA:CPU's tree reduction: a float32 sum of more terms is taken
+#: as sums of windows of this many terms, each in order, then over the
+#: window sums the same way (its TreeReductionRewriter).
+XLA_REDUCE_WINDOW = 32
+
+
+def xla_cpu_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of the 1-D ``x`` in XLA:CPU's order: zero-padded to
+    whole windows of :data:`XLA_REDUCE_WINDOW`, each window summed in
+    order, repeated over the window sums until one window is left, which
+    is summed in order. Only float32 adds, each rounded as IEEE demands,
+    so the value is the same on every device. It equals the reference's
+    ``jnp.sum`` on XLA:CPU whenever ``x`` has a multiple of 32 terms
+    (tests/test_torch_dense.py); other lengths XLA:CPU pads in an order
+    not matched here."""
+    w = XLA_REDUCE_WINDOW
+    while x.numel() > w:
+        x = torch.nn.functional.pad(x, (0, -x.numel() % w)).view(-1, w)
+        acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for i in range(w):
+            acc = acc + x[:, i]
+        x = acc
+    total = torch.zeros((), dtype=x.dtype, device=x.device)
+    for i in range(x.numel()):
+        total = total + x[i]
+    return total
+
+
 def _fd_vectors(params: SimParams, state: SimState, plan, keys, cand, view0, fd_round, collect):
     """One FD round as per-row vectors: ``(tgt, fd_key, fire, msgs, extras)``.
 
@@ -497,12 +525,8 @@ def sim_tick(
     ok_dead = ~alive[None, :] & ((status2 == _DEAD) | (view2 < 0))
     match = torch.where(alive[None, :], ok_alive, ok_dead) | diag
     viewer_conv = match.sum(dim=1, dtype=torch.float32) / n
-    # The float32 sum taken exactly (in float64) and rounded once: the same
-    # value on every device, and the reference's wherever its float32 sum
-    # is exact (n a power of two and n <= 4096: the partial sums K/n need
-    # up to 2·log2(n) bits). At larger n it is the exactly rounded value,
-    # which XLA's summation order need not give.
-    conv_sum = (viewer_conv * alive).to(torch.float64).sum().to(torch.float32)
+    # The float32 sum in XLA:CPU's order, the same value on every device.
+    conv_sum = xla_cpu_sum_f32(viewer_conv * alive)
     convergence = conv_sum / torch.clamp_min(n_alive, 1)
     # A membership message exists when the sender has something young to
     # say: its payload row, or a verdict fired this tick.

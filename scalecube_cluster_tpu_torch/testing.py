@@ -1,6 +1,7 @@
 """Seeded operands for holding the kernels against their plain versions:
-shared by the parity tests and ``chip_smoke.py``. Nothing on the engines'
-paths imports this module."""
+shared by the parity tests, ``chip_smoke.py`` and the persistent core's
+k-sweep bench (which prices the kernel on the same operand set, as the JAX
+package's rung does). Nothing on the engines' paths imports this module."""
 
 from __future__ import annotations
 
@@ -94,4 +95,33 @@ def random_operands(n: int, s: int, f: int = 3, seed: int = 0) -> dict:
         "sy_slot": sy_slot,
         "fd_key": keys((n,)),
         "sy_key": keys((n,)),
+    }
+
+
+def persistent_operands(n: int, s: int, f: int = 3, k_max: int = 8, seed: int = 0) -> dict:
+    """A seeded numpy operand set for ``ops.sparse_persistent.
+    sparse_core_persistent``, drawn exactly as the JAX package's
+    ``tests/test_sparse.py::_persistent_inputs`` and
+    ``bench.py::_measure_persistent_ksweep`` draw theirs (the same values
+    from the same seed): a slab of random keys and UNKNOWNs, ages 0..119,
+    countdowns 0..20, half the slots active, ``k_max`` ticks of random
+    window blocks, rotations and 80% edges, 90% live rows."""
+    rng = np.random.default_rng(seed)
+    nb = n // SPARSE_GROUP
+    slab = rng.integers(-1, 1 << 20, (n, s)).astype(np.int32)
+    age = rng.integers(0, 120, (n, s)).astype(np.int8)
+    susp = rng.integers(0, 21, (n, s)).astype(np.int16)
+    subj = np.full(s, -1, np.int32)
+    k_active = min(n, s // 2)
+    subj[:k_active] = rng.choice(n, size=k_active, replace=False)
+    rng.shuffle(subj)
+    return {
+        "slab": slab,
+        "age": age,
+        "susp": susp,
+        "slot_subj": subj,
+        "ginv": rng.integers(0, nb, (k_max, f, nb)).astype(np.int32),
+        "rots": rng.integers(0, SPARSE_GROUP, (k_max, f, nb)).astype(np.int32),
+        "edge_ok": rng.random((k_max, f, n)) < 0.8,
+        "alive": rng.random(n) < 0.9,
     }

@@ -42,6 +42,10 @@ def test_sources_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _sources()}
     assert "scalecube_cluster_tpu_torch/sim/sparse.py" in names
     assert "scalecube_cluster_tpu_torch/ops/sparse_core.py" in names
+    for module in ("ops/sparse_persistent.py", "ops/delivery_merge.py",
+                   "sim/checkpoint.py", "tools/__init__.py",
+                   "tools/profile_tick.py", "tools/probe_kernels.py"):
+        assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 
 
