@@ -53,8 +53,9 @@ Phases, each of which must pass (any failure exits non-zero):
     launched (2 + 1) x 4 times;
 13. the five card probes (``tools/probe_kernels.py``) pass, each kernel
     equal to its plain version; their times;
-14. the dense ``convergence`` sum (XLA:CPU's tree order) on the card
-    equals the CPU's at n=10240 on seeded terms;
+14. the dense ``convergence`` sum (XLA:CPU's tree order) and the
+    per-viewer means under it on the card equal the CPU's at n=10240 on
+    seeded terms;
 15. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
@@ -145,11 +146,11 @@ DM_OPS_PER_CELL = 23 + 1
 DM_OPS_PER_SENDER_CELL = 3
 #: Per row: the diagonal (self-rumor and exclusion) 3, the liveness test 1.
 DM_OPS_PER_ROW = 4
-#: Integer operations per element of each probe's function: p_smallint's
+#: Integer operations per cell of each probe's function: p_smallint's
 #: compare, min, add and select (o8), subtract, max and select (o16) and
-#: select (ov); p_accum's add; p_fdmask's compare and select; the copies
-#: (p_window2d, p_roll) none.
-PROBE_OPS_PER_ELEMENT = {
+#: select (ov); p_accum's add per input cell; p_fdmask's compare and select;
+#: the copies (p_window2d, p_roll) none.
+PROBE_OPS_PER_CELL = {
     "p_smallint": 8, "p_window2d": 0, "p_accum": 1, "p_fdmask": 2, "p_roll": 0,
 }
 
@@ -796,6 +797,23 @@ def phase_delivery_merge_path(torch):
     return launches
 
 
+def probe_work(pk, name, args):
+    """The least probe ``name`` must do on ``args``: the bytes its function
+    reads and writes (each once; p_window2d reads only its two 8-row
+    windows of ``rows``) and its integer operations (per cell of the
+    output, per input cell for p_accum's sums)."""
+    outs = pk.PROBES[name][2](*args)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    out_bytes = sum(o.numel() * o.element_size() for o in outs)
+    if name == "p_window2d":
+        rows, idx = args
+        in_bytes = idx.numel() * 8 * pk.WINDOW_MC * rows.element_size() + idx.numel() * 4
+    else:
+        in_bytes = sum(a.numel() * a.element_size() for a in args)
+    cells = args[0].numel() if name in ("p_smallint", "p_accum") else outs[0].numel()
+    return in_bytes + out_bytes, cells * PROBE_OPS_PER_CELL[name]
+
+
 def phase_probes(torch):
     from scalecube_cluster_tpu_torch.tools import probe_kernels as pk
 
@@ -813,16 +831,13 @@ def phase_probes(torch):
         args = [torch.from_numpy(a).cuda() for a in ops]
         k_ms = _time_cuda(torch, lambda: wrapper(*args), 200)
         p_ms = _time_cuda(torch, lambda: reference(*args), 200)
-        outs = reference(*args)
-        outs = outs if isinstance(outs, tuple) else (outs,)
-        bytes_moved = sum(a.numel() * a.element_size() for a in (*args, *outs))
-        elements = sum(o.numel() for o in outs) if name != "p_accum" else args[0].numel()
+        bytes_moved, n_ops = probe_work(pk, name, args)
         # One PyTorch call computes p_accum (a row sum) and p_roll (a roll).
         library = {"p_accum": lambda: torch.sum(args[0], dim=1, dtype=torch.int32),
                    "p_roll": lambda: torch.roll(args[0], pk.ROLL_SHIFT, dims=0)}.get(name)
         lib_ms = _time_cuda(torch, library, 200) if library else None
         row = {"max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-               **_bound_row(bytes_moved, elements * PROBE_OPS_PER_ELEMENT[name])}
+               **_bound_row(bytes_moved, n_ops)}
         rows[name] = row
         say(f"[13] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
@@ -836,17 +851,22 @@ def phase_probes(torch):
 def phase_convergence_sum(torch):
     import numpy as np
 
-    from scalecube_cluster_tpu_torch.sim.tick import xla_cpu_sum_f32
+    from scalecube_cluster_tpu_torch.sim.tick import xla_cpu_sum_f32, xla_row_means_f32
 
     n = 10240
     rng = np.random.default_rng(0)
+    match = torch.from_numpy(rng.random((16, n)) < 0.97)
+    means_card = xla_row_means_f32(match.cuda()).cpu()
+    if not torch.equal(means_card.view(torch.int32), xla_row_means_f32(match).view(torch.int32)):
+        fail("per-viewer means differ between the card and the CPU")
     terms = (rng.integers(n // 2, n + 1, n).astype(np.float32) / np.float32(n)) * (
         rng.random(n) < 0.95)
     card = xla_cpu_sum_f32(torch.from_numpy(terms).cuda()).cpu()
     cpu = xla_cpu_sum_f32(torch.from_numpy(terms))
     if card.view(torch.int32) != cpu.view(torch.int32):
         fail(f"convergence sum differs on the card: {float(card)!r} vs {float(cpu)!r}")
-    say(f"[14] convergence sum (XLA:CPU tree order) at n={n}: card == CPU ({float(card)!r})")
+    say(f"[14] convergence sum (XLA:CPU tree order) and viewer means at n={n}: "
+        f"card == CPU ({float(card)!r})")
 
 
 def _kernel_entry(name, source, replaces, launches, row, checked_in):

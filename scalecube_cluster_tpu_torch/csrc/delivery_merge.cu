@@ -42,7 +42,6 @@ namespace {
 constexpr int kGroup = 8;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 256;
-using swim::alive_key;
 
 __global__ void __launch_bounds__(kThreads) delivery_merge_kernel(
     const int32_t* __restrict__ rows, const int32_t* __restrict__ local,
@@ -60,8 +59,7 @@ __global__ void __launch_bounds__(kThreads) delivery_merge_kernel(
   for (int i = threadIdx.x; i < f * kGroup; i += blockDim.x) {
     const int c = i / kGroup;
     const int r = i % kGroup;
-    const int rot = ((r + rots[c * ng + grp]) % kGroup + kGroup) % kGroup;
-    s_row[c][r] = (int64_t)kGroup * ginv[c * ng + grp] + rot;
+    s_row[c][r] = swim::window_row(kGroup, ginv[c * ng + grp], rots[c * ng + grp], r);
     s_ok[c][r] = edge_ok[(int64_t)c * n + (int64_t)grp * kGroup + r];
   }
   for (int r = threadIdx.x; r < kGroup; r += blockDim.x)
@@ -74,12 +72,8 @@ __global__ void __launch_bounds__(kThreads) delivery_merge_kernel(
       const int row = grp * kGroup + r;
       int best_any = -1;
       int best_alive = -1;
-      for (int c = 0; c < f; ++c) {
-        if (!s_ok[c][r]) continue;
-        const int w = rows[s_row[c][r] * n + j];
-        best_any = max(best_any, w);
-        if (alive_key(w)) best_alive = max(best_alive, w);
-      }
+      for (int c = 0; c < f; ++c)
+        if (s_ok[c][r]) swim::offer(rows[s_row[c][r] * n + j], best_any, best_alive);
       if (j == row) {
         self_rumor[row] = best_any;
         best_any = -1;

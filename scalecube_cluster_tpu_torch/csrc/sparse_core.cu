@@ -57,8 +57,6 @@ namespace {
 constexpr int kGroup = 32;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 256;
-using swim::alive_key;
-using swim::kDeadBit;
 
 __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const int32_t* __restrict__ slab, const int8_t* __restrict__ age,
@@ -91,9 +89,7 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
   for (int i = threadIdx.x; i < f * kGroup; i += blockDim.x) {
     const int c = i / kGroup;
     const int r = i % kGroup;
-    const int g = ginv[c * nb + blk];
-    const int rot = ((r + rots[c * nb + blk]) % kGroup + kGroup) % kGroup;
-    const int src = kGroup * g + rot;
+    const int64_t src = swim::window_row(kGroup, ginv[c * nb + blk], rots[c * nb + blk], r);
     w_row[c][r] = src;
     w_fd[c][r] = fd_slot[src];
     w_sy[c][r] = sy_slot[src];
@@ -132,10 +128,7 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
             w = w_fdk[c][r];
             a = 0;
           }
-          if (a < spread) {
-            best_any = max(best_any, w);
-            if (alive_key(w)) best_alive = max(best_alive, w);
-          }
+          if (a < spread) swim::offer(w, best_any, best_alive);
         }
       }
 
@@ -166,30 +159,12 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
       if (!active || !alive_row) merged = local;
 
       // Suspicion countdown, DEAD transition, aging.
-      const int s_loc = susp[loff];
-      const bool armed = s_loc > 0;
-      const bool rearm = merged != local || point;
-      const int left0 = max(s_loc - 1, 0);
-      const bool expired = alive_row && armed && !rearm && left0 == 0 &&
-                           (merged & kDeadBit) == 0 && (merged & 1) != 0 &&
-                           merged >= 0;
-      const int out = expired ? ((merged | kDeadBit) & ~1) : merged;
-      const bool changed = (out != local || point) && alive_row && active;
-      const int a2 = changed ? 0 : min(a0, age_stale - 1) + 1;
-      const bool dead2 = (out & kDeadBit) != 0 && out >= 0;
-      const bool susp_rec = (out & 1) != 0 && !dead2 && out >= 0;
-      int s2 = (susp_rec && active) ? ((rearm || !armed) ? susp_ticks : left0) : 0;
-      if (!alive_row) s2 = s_loc;
-
-      slab2[loff] = out;
-      age2[loff] = static_cast<int8_t>(a2);
-      susp2[loff] = static_cast<int16_t>(s2);
-
-      if (alive_row) {
-        const bool holding =
-            a2 < spread || s2 > 0 || (dead2 && !(a2 > sweep) && !own);
-        bits |= (holding ? 1 : 0) | (susp_rec ? 2 : 0) | (dead2 ? 4 : 0);
-      }
+      const swim::Cell cell = swim::countdown(local, merged, a0, susp[loff], point,
+                                              alive_row, active, susp_ticks, age_stale);
+      slab2[loff] = cell.key;
+      age2[loff] = static_cast<int8_t>(cell.age);
+      susp2[loff] = static_cast<int16_t>(cell.susp);
+      if (alive_row) bits |= swim::aggregate_bits(cell, own, spread, sweep);
     }
     if (bits) atomicOr(&aggr[j], bits);
   }

@@ -56,8 +56,6 @@ constexpr int kGroup = 32;
 constexpr int kAliveBit = 7;
 constexpr int kMaxFanout = kAliveBit;
 constexpr int kThreads = 256;
-using swim::alive_key;
-using swim::kDeadBit;
 
 // The slab and cold pointers of the launch are plain (no __restrict__):
 // the A/B buffers are written by some CTAs and read by others.
@@ -90,8 +88,7 @@ __global__ void __launch_bounds__(kThreads) sparse_persistent_kernel(
       for (int i = threadIdx.x; i < f * kGroup; i += blockDim.x) {
         const int c = i / kGroup;
         const int r = i % kGroup;
-        const int rot = ((r + t_rots[c * nb + blk]) % kGroup + kGroup) % kGroup;
-        w_row[c][r] = (int64_t)kGroup * t_ginv[c * nb + blk] + rot;
+        w_row[c][r] = swim::window_row(kGroup, t_ginv[c * nb + blk], t_rots[c * nb + blk], r);
         w_ok[c][r] = (t_flags[blk * kGroup + r] >> c) & 1;
       }
       for (int r = threadIdx.x; r < kGroup; r += blockDim.x)
@@ -111,11 +108,7 @@ __global__ void __launch_bounds__(kThreads) sparse_persistent_kernel(
               if (!w_ok[c][r]) continue;
               const int64_t off = w_row[c][r] * s + j;
               const int a = __ldcg(src_cold + off) & 0xFF;
-              if (a < spread) {
-                const int w = __ldcg(src_slab + off);
-                best_any = max(best_any, w);
-                if (alive_key(w)) best_alive = max(best_alive, w);
-              }
+              if (a < spread) swim::offer(__ldcg(src_slab + off), best_any, best_alive);
             }
           }
 
@@ -137,28 +130,11 @@ __global__ void __launch_bounds__(kThreads) sparse_persistent_kernel(
           if (!active || !alive_row) merged = local;
 
           // Suspicion countdown, DEAD transition, aging (no point updates).
-          const bool armed = s_loc > 0;
-          const bool rearm = merged != local;
-          const int left0 = max(s_loc - 1, 0);
-          const bool expired = alive_row && armed && !rearm && left0 == 0 &&
-                               (merged & kDeadBit) == 0 && (merged & 1) != 0 &&
-                               merged >= 0;
-          const int out = expired ? ((merged | kDeadBit) & ~1) : merged;
-          const bool changed = out != local && alive_row && active;
-          const int a2 = changed ? 0 : min(a0, age_stale - 1) + 1;
-          const bool dead2 = (out & kDeadBit) != 0 && out >= 0;
-          const bool susp_rec = (out & 1) != 0 && !dead2 && out >= 0;
-          int s2 = (susp_rec && active) ? ((rearm || !armed) ? susp_ticks : left0) : 0;
-          if (!alive_row) s2 = s_loc;
-
-          dst_slab[loff] = out;
-          dst_cold[loff] = static_cast<int16_t>((a2 & 0xFF) | (s2 << 8));
-
-          if (last && alive_row) {
-            const bool holding =
-                a2 < spread || s2 > 0 || (dead2 && !(a2 > sweep) && !own);
-            bits |= (holding ? 1 : 0) | (susp_rec ? 2 : 0) | (dead2 ? 4 : 0);
-          }
+          const swim::Cell cell = swim::countdown(local, merged, a0, s_loc, false, alive_row,
+                                                  active, susp_ticks, age_stale);
+          dst_slab[loff] = cell.key;
+          dst_cold[loff] = static_cast<int16_t>((cell.age & 0xFF) | (cell.susp << 8));
+          if (last && alive_row) bits |= swim::aggregate_bits(cell, own, spread, sweep);
         }
         bits &= aggr_mask;
         if (bits) atomicOr(&aggr[j], bits);

@@ -1,7 +1,9 @@
 // Device helpers shared by the port's SWIM kernels: the record-key layout
-// of scalecube_cluster_tpu_torch/ops/merge.py and its merge lattice
-// (merge_views). Every kernel source that includes this header is rebuilt
-// when it changes (ops/cuda_build.py hashes the headers with each source).
+// of scalecube_cluster_tpu_torch/ops/merge.py, the sender-window
+// addressing, the delivered maxima, the merge lattice (merge_views) and
+// the per-cell suspicion countdown, DEAD transition and aging. Every
+// kernel source that includes this header is rebuilt when it changes
+// (ops/cuda_build.py hashes the headers with each source).
 #pragma once
 
 #include <stdint.h>
@@ -14,6 +16,30 @@ constexpr int kEpochShift = 22;
 // A known ALIVE record (ops/merge.py::is_alive_key).
 __device__ __forceinline__ bool alive_key(int k) {
   return k >= 0 && (k & kDeadBit) == 0 && (k & 1) == 0;
+}
+
+// A known DEAD record.
+__device__ __forceinline__ bool dead_key(int k) {
+  return k >= 0 && (k & kDeadBit) != 0;
+}
+
+// A known SUSPECT record.
+__device__ __forceinline__ bool suspect_key(int k) {
+  return k >= 0 && (k & kDeadBit) == 0 && (k & 1) != 0;
+}
+
+// The sender row that feeds receiver row ``r`` of its ``group``-row block
+// on one channel: row (r + rot) mod group of sender block ``ginv`` (the
+// TPU kernels' roll of the sender window by group - rot).
+__device__ __forceinline__ int64_t window_row(int group, int ginv, int rot, int r) {
+  return (int64_t)group * ginv + ((r + rot) % group + group) % group;
+}
+
+// One delivered record ``w`` into the receiver cell's running maxima: the
+// best record and the best ALIVE record (-1 = nothing yet).
+__device__ __forceinline__ void offer(int w, int& best_any, int& best_alive) {
+  best_any = max(best_any, w);
+  if (alive_key(w)) best_alive = max(best_alive, w);
 }
 
 // ops/merge.py::merge_views on one cell: the receiver's record ``local``
@@ -30,6 +56,47 @@ __device__ __forceinline__ int merge_key(int local, int best_any, int best_alive
   int merged = upd_same ? best_any : (intro ? best_alive : local);
   if (intro && e_alive > e_any) merged = best_alive;
   return merged;
+}
+
+// One cell after its merge.
+struct Cell {
+  int key;   // the record
+  int age;   // its age (saturating at age_stale)
+  int susp;  // its suspicion countdown
+};
+
+// The suspicion countdown, the DEAD transition and aging of one cell:
+// ``local`` is the receiver's record (with its point update applied, and
+// ``point`` set, when it had one), ``merged`` the merge's result, ``a0``
+// and ``s_loc`` the cell's age and countdown. An armed SUSPECT record that
+// nothing re-armed turns DEAD when its countdown runs out; a changed cell
+// ages to 0, others by one; a dead receiver row keeps its countdown; an
+// inactive lane (``active`` false, sparse only) never resets or arms.
+__device__ __forceinline__ Cell countdown(int local, int merged, int a0, int s_loc,
+                                         bool point, bool alive_row, bool active,
+                                         int susp_ticks, int age_stale) {
+  const bool armed = s_loc > 0;
+  const bool rearm = merged != local || point;
+  const int left0 = max(s_loc - 1, 0);
+  const bool expired = alive_row && armed && !rearm && left0 == 0 && suspect_key(merged);
+  Cell cell;
+  cell.key = expired ? ((merged | kDeadBit) & ~1) : merged;
+  const bool changed = (cell.key != local || point) && alive_row && active;
+  cell.age = changed ? 0 : min(a0, age_stale - 1) + 1;
+  cell.susp = (suspect_key(cell.key) && active) ? ((rearm || !armed) ? susp_ticks : left0) : 0;
+  if (!alive_row) cell.susp = s_loc;
+  return cell;
+}
+
+// The sparse aggregate bits of one cell of a live row: bit 0 the lane
+// still holds it (young, counting down, or an unswept DEAD record of
+// another member), bit 1 a SUSPECT record, bit 2 a DEAD record.
+__device__ __forceinline__ int aggregate_bits(const Cell& cell, bool own, int spread,
+                                              int sweep) {
+  const bool dead = dead_key(cell.key);
+  const bool holding =
+      cell.age < spread || cell.susp > 0 || (dead && !(cell.age > sweep) && !own);
+  return (holding ? 1 : 0) | (suspect_key(cell.key) ? 2 : 0) | (dead ? 4 : 0);
 }
 
 }  // namespace swim

@@ -60,8 +60,6 @@ constexpr int kGroup = 8;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-using swim::alive_key;
-using swim::kDeadBit;
 
 __global__ void __launch_bounds__(kThreads) tick_core_kernel(
     const int32_t* __restrict__ rows, const int32_t* __restrict__ view0,
@@ -90,8 +88,7 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
   for (int i = threadIdx.x; i < f * kGroup; i += blockDim.x) {
     const int c = i / kGroup;
     const int r = i % kGroup;
-    const int rot = ((r + rots[c * ng + grp]) % kGroup + kGroup) % kGroup;
-    const int src = kGroup * ginv[c * ng + grp] + rot;
+    const int64_t src = swim::window_row(kGroup, ginv[c * ng + grp], rots[c * ng + grp], r);
     s_row[c][r] = src;
     s_tgt[c][r] = fd_tgt[src];
     s_key[c][r] = fd_key[src];
@@ -119,8 +116,7 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
         if (!s_ok[c][r]) continue;
         int w = rows[s_row[c][r] * n + j];
         if (j == s_tgt[c][r]) w = s_key[c][r];
-        best_any = max(best_any, w);
-        if (alive_key(w)) best_alive = max(best_alive, w);
+        swim::offer(w, best_any, best_alive);
       }
       const bool on_diag = j == row;
       if (on_diag) {
@@ -139,28 +135,17 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
       const bool alive_row = r_alive[r] != 0;
       if (!alive_row) merged = view1;
 
-      // Suspicion countdown, DEAD transition, aging, tombstones.
-      const int s_loc = susp[off];
-      const bool armed = s_loc > 0;
-      const bool rearm = merged != view1 || cellm;
-      const int left0 = max(s_loc - 1, 0);
-      const bool expired = alive_row && armed && !rearm && left0 == 0 &&
-                           (merged & kDeadBit) == 0 && (merged & 1) != 0 &&
-                           merged >= 0;
-      int out = expired ? ((merged | kDeadBit) & ~1) : merged;
-      const bool changed = (out != view1 || cellm) && alive_row;
-      const int a2 = changed ? 0 : min(a0, age_stale - 1) + 1;
-      if (!on_diag && (out & kDeadBit) != 0 && out >= 0 && a2 > sweep && alive_row)
-        out = -1;
-      const bool is_susp = (out & 1) != 0 && (out & kDeadBit) == 0 && out >= 0;
-      int s2 = is_susp ? ((rearm || !armed) ? susp_ticks : left0) : 0;
-      if (!alive_row) s2 = s_loc;
+      // Suspicion countdown, DEAD transition, aging, tombstone demotion.
+      const swim::Cell cell = swim::countdown(view1, merged, a0, susp[off], cellm, alive_row,
+                                              true, susp_ticks, age_stale);
+      int out = cell.key;
+      if (!on_diag && swim::dead_key(out) && cell.age > sweep && alive_row) out = -1;
 
       view2[off] = out;
-      age2[off] = static_cast<int8_t>(a2);
-      susp2[off] = static_cast<int16_t>(s2);
-      rows_next[off] = a2 < spread ? out : -1;
-      cnt[r] += (out >= 0 && (out & kDeadBit) == 0 && !on_diag) ? 1 : 0;
+      age2[off] = static_cast<int8_t>(cell.age);
+      susp2[off] = static_cast<int16_t>(cell.susp);
+      rows_next[off] = cell.age < spread ? out : -1;
+      cnt[r] += (out >= 0 && !swim::dead_key(out) && !on_diag) ? 1 : 0;
     }
   }
 

@@ -72,6 +72,7 @@ from scalecube_cluster_tpu_torch.ops.sparse_core import (
     SLOT_BITS,
     sparse_core,
 )
+from scalecube_cluster_tpu_torch.ops.sparse_persistent import FOLD_PIECES
 from scalecube_cluster_tpu_torch.sim.faults import (
     FaultPlan,
     edge_blocked,
@@ -130,13 +131,16 @@ def slot_budget_for(
 class SparseParams:
     """Static constants: the protocol constants + working-set bounds.
 
-    The port always runs the fused core with the whole fold (on the card
-    the kernel, on the CPU its plain version): its states equal the
-    reference's under ``pallas_core=True`` and the whole ``pallas_fold``.
-    Under other settings the reference's protocol state is the same, but
-    its carried write-back pin mask (``wb_pinned``/``wb_valid``) is not.
-    The port carries the two switches unread, so params cross packages in
-    a checkpoint and come back unchanged (sim/checkpoint.py)."""
+    ``pallas_core`` and ``pallas_fold`` are checkpoint metadata, not
+    switches: the port reads neither and always runs the fused core with
+    the whole fold (on the card the kernel, on the CPU its plain version).
+    Its states equal the reference's under ``pallas_core=True`` and the
+    whole ``pallas_fold``; under other settings the reference's protocol
+    state is the same, but its carried write-back pin mask
+    (``wb_pinned``/``wb_valid``) is not. The two fields exist so params
+    cross packages in a checkpoint and come back unchanged
+    (sim/checkpoint.py); a fold the reference refuses is refused here
+    too."""
 
     base: SimParams
     #: Max simultaneously active subjects (the slab width S).
@@ -148,7 +152,8 @@ class SparseParams:
     #: False: the tick never touches ``view_T``; frees happen between
     #: chunks in :func:`writeback_free` (the big-n driver).
     in_scan_writeback: bool = True
-    #: The reference's kernel switch and fold pieces (carried, not read).
+    #: The reference's kernel switch and fold pieces: checkpoint metadata
+    #: that the port never reads (see the class docstring).
     pallas_core: bool = False
     pallas_fold: frozenset = frozenset({"countdown", "points", "wb_mask", "view_rows"})
     #: Bounded-window table SYNC width (0 disables).
@@ -156,7 +161,16 @@ class SparseParams:
 
     def __post_init__(self):
         # A checkpoint's JSON carries the fold as a list: freeze it again.
-        object.__setattr__(self, "pallas_fold", frozenset(self.pallas_fold))
+        fold = frozenset(self.pallas_fold)
+        unknown = fold - set(FOLD_PIECES)
+        if unknown:
+            raise ValueError(f"unknown pallas_fold pieces {sorted(unknown)}; valid: {FOLD_PIECES}")
+        if ("wb_mask" in fold or "view_rows" in fold) and "countdown" not in fold:
+            raise ValueError(
+                "pallas_fold: 'wb_mask'/'view_rows' aggregate the swept arrays, "
+                "so they require 'countdown'"
+            )
+        object.__setattr__(self, "pallas_fold", fold)
 
     @classmethod
     def for_n(

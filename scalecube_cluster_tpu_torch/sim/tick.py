@@ -116,18 +116,28 @@ def _count(mask: torch.Tensor) -> torch.Tensor:
 XLA_REDUCE_WINDOW = 32
 
 
+def xla_row_means_f32(match: torch.Tensor) -> torch.Tensor:
+    """The float32 row means of the boolean ``[R, M]`` ``match`` as the
+    reference's ``jnp.mean(match, axis=1)`` gives them: XLA turns the
+    division by the constant M into a product with M's float32 reciprocal
+    (tests/test_torch_dense.py)."""
+    m = torch.tensor(float(match.shape[1]), dtype=torch.float32, device=match.device)
+    return match.sum(dim=1, dtype=torch.float32) * torch.reciprocal(m)
+
+
 def xla_cpu_sum_f32(x: torch.Tensor) -> torch.Tensor:
     """The float32 sum of the 1-D ``x`` in XLA:CPU's order: zero-padded to
-    whole windows of :data:`XLA_REDUCE_WINDOW`, each window summed in
-    order, repeated over the window sums until one window is left, which
-    is summed in order. Only float32 adds, each rounded as IEEE demands,
-    so the value is the same on every device. It equals the reference's
-    ``jnp.sum`` on XLA:CPU whenever ``x`` has a multiple of 32 terms
-    (tests/test_torch_dense.py); other lengths XLA:CPU pads in an order
-    not matched here."""
+    whole windows of :data:`XLA_REDUCE_WINDOW` (half the padding in front,
+    the odd zero at the end, as XLA's reduce-window pads), each window
+    summed in order, repeated over the window sums until one window is
+    left, which is summed in order. Only float32 adds, each rounded as IEEE
+    demands, so the value is the same on every device. It equals the
+    reference's ``jnp.sum`` on XLA:CPU at every length
+    (tests/test_torch_dense.py)."""
     w = XLA_REDUCE_WINDOW
     while x.numel() > w:
-        x = torch.nn.functional.pad(x, (0, -x.numel() % w)).view(-1, w)
+        pad = -x.numel() % w
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).view(-1, w)
         acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
         for i in range(w):
             acc = acc + x[:, i]
@@ -524,7 +534,7 @@ def sim_tick(
     ok_alive = truth_alive & (status2 == _ALIVE)
     ok_dead = ~alive[None, :] & ((status2 == _DEAD) | (view2 < 0))
     match = torch.where(alive[None, :], ok_alive, ok_dead) | diag
-    viewer_conv = match.sum(dim=1, dtype=torch.float32) / n
+    viewer_conv = xla_row_means_f32(match)
     # The float32 sum in XLA:CPU's order, the same value on every device.
     conv_sum = xla_cpu_sum_f32(viewer_conv * alive)
     convergence = conv_sum / torch.clamp_min(n_alive, 1)

@@ -199,6 +199,22 @@ def test_elastic_archive_is_refused(tmp_path):
         TC.load_sparse_checkpoint(tmp_path / "e", device="cpu")
 
 
+@pytest.mark.parametrize(
+    "fold, match",
+    [({"countdown", "swept"}, "unknown pallas_fold pieces"),
+     ({"wb_mask"}, "require 'countdown'"),
+     ({"points", "view_rows"}, "require 'countdown'")],
+)
+def test_sparse_params_refuse_the_folds_jax_refuses(fold, match):
+    """The fold the port's params carry as metadata is held to the
+    reference's rules: both packages refuse the same folds."""
+    jp = sparse_params(N)
+    with pytest.raises(ValueError, match=match):
+        dataclasses.replace(jp, pallas_fold=frozenset(fold))
+    with pytest.raises(ValueError, match=match):
+        dataclasses.replace(port_params(jp), pallas_fold=frozenset(fold))
+
+
 def test_dense_archive_is_not_sparse(tmp_path):
     """Each loader refuses the other engine's archive, as the reference's do."""
     ts, tp = _dense_port()
