@@ -17,7 +17,10 @@ Phases, each of which must pass (any failure exits non-zero):
    PyTorch version on the same seeded operands, at the bench shape
    (n=32768, S=512, f=3) and at n=1024, S=256 — all five outputs
    bit-equal; kernel and plain times and the bound (the larger of the
-   bytes moved and the int32 operations the function needs);
+   bytes moved and the int32 operations the function needs); then at the
+   kernel's tile edges (n=1024, S = 100, 260 and 101: point lanes beside
+   every 128-lane tile boundary, one tile with no active lane, rows off
+   16-byte alignment at S=101) — bit-equal;
 4. sparse card vs CPU: a 60-tick trajectory (n=1024, S=256: FD every 2
    ticks, SYNC every 10, suspicion 12, 10% loss, chunks of 12) run on the
    card and on the CPU — every state leaf and every counter equal after
@@ -28,7 +31,9 @@ Phases, each of which must pass (any failure exits non-zero):
    launched on every tick; then one collect=True chunk;
 6. dense kernel vs plain on the card: the tick-core kernel and its plain
    version on seeded operands at n=10240 and n=256 (f=3) — all six outputs
-   bit-equal; times and the bound;
+   bit-equal; times and the bound; then at the kernel's tile edges (n = 264
+   and 1032: FD targets beside every 256-column tile boundary, the
+   diagonal in every tile) — bit-equal;
 7. dense card vs CPU: a 60-tick trajectory (n=256, the fused core, FD
    every 2 ticks, SYNC every 10, suspicion 12, 10% loss, member 5 killed
    and restarted at tick 24 so the joining slow path runs, chunks of 12)
@@ -119,9 +124,17 @@ DENSE_OPS_PER_SENDER_CELL = 5
 #: Per row: the diagonal (self-rumor and exclusion) 3, the FD cell (its
 #: test, two selects, two re-arm terms) 5, the liveness test 1.
 DENSE_OPS_PER_ROW = 9
-#: Bytes per cell that csrc/tick_core.cu moves at f=3: the 3 sender rows
-#: (int32) read for every cell, view0, age, susp read, four outputs written.
-DENSE_KERNEL_BYTES_PER_CELL = 3 * 4 + 4 + 1 + 2 + 4 + 1 + 2 + 4
+#: Bytes per cell that csrc/tick_core.cu moves from device memory by
+#: design: rows once (its grid keeps each sender row's band in L2 across
+#: its f reads), view0, age, susp read, four outputs written; the f - 1
+#: other reads of each sender cell (:data:`DENSE_L2_REREAD_BYTES`) are
+#: served by the L2.
+DENSE_KERNEL_BYTES_PER_CELL = 4 + 4 + 1 + 2 + 4 + 1 + 2 + 4
+DENSE_L2_REREAD_BYTES = 4
+#: The same for csrc/sparse_core.cu: slab, age, susp read once and written
+#: once; the f sender-window reads of each (slab, age) cell come from L2.
+SPARSE_KERNEL_BYTES_PER_CELL = 2 * (4 + 1 + 2)
+SPARSE_L2_REREAD_BYTES = 4 + 1
 #: Persistent core, per tick: the sparse core's terms without the points.
 #: Per cell of an active lane: the merge lattice 23; the countdown, DEAD
 #: transition and aging 26; the cold lane's unpack (2) and pack (3) 5.
@@ -269,10 +282,11 @@ def core_work(ops):
 
 def phase_kernel_vs_plain(torch):
     from scalecube_cluster_tpu_torch.ops.sparse_core import (
+        TILE_LANES,
         sparse_core,
         sparse_core_reference,
     )
-    from scalecube_cluster_tpu_torch.testing import random_operands
+    from scalecube_cluster_tpu_torch.testing import random_operands, tile_edge_operands
 
     consts = dict(spread=48, susp_ticks=400, age_stale=120, sweep=98)
     rows = {}
@@ -294,13 +308,30 @@ def phase_kernel_vs_plain(torch):
         row = {"n": n, "S": s, "f": f, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                **_bound_row(*core_work(ops))}
         rows[(n, s)] = row
+        l2_bytes = f * n * s * SPARSE_L2_REREAD_BYTES
         say(
             f"[3] sparse_core n={n} S={s} f={f}: bit-equal to plain (max_abs_err {err}); "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"by {row['bound_by']} ({row['bytes']} B = {row['bytes_ms']:.4f} ms; "
-            f"{row['int32_ops']} int32 ops = {row['ops_ms']:.4f} ms); library_ms null — "
-            "no single PyTorch call computes this function"
+            f"{row['int32_ops']} int32 ops = {row['ops_ms']:.4f} ms); the kernel moves "
+            f"{n * s * SPARSE_KERNEL_BYTES_PER_CELL} B of planes from device memory by "
+            f"design and re-reads {l2_bytes} B of sender windows from L2; library_ms null "
+            "— no single PyTorch call computes this function"
         )
+        del ops, args
+    for n, s, seed in ((1024, 100, 3), (1024, 260, 4), (1024, 101, 5)):
+        ops = {
+            k: torch.from_numpy(v).cuda()
+            for k, v in tile_edge_operands(n, s, 3, seed=seed, tile=TILE_LANES).items()
+        }
+        args = tuple(ops.values())
+        got = sparse_core(*args, **consts)
+        want = sparse_core_reference(*args, **consts)
+        torch.cuda.synchronize()
+        err = _compare(("slab2", "age2", "susp2", "self_rumor", "aggr"), got, want,
+                       f"at tile edges n={n} S={s}")
+        say(f"[3] sparse_core tile edges n={n} S={s} (tile {TILE_LANES} lanes): bit-equal "
+            f"to plain (max_abs_err {err})")
     return rows
 
 
@@ -451,7 +482,8 @@ def dense_core_work(ops):
     it must move (each [N, N] input read once, each output written once,
     plus the vectors) and the integer operations its function needs, the
     delivered (cell, channel) term counted from the edge bits. Also the
-    bytes this simple kernel moves (the sender rows read for every cell)."""
+    bytes the kernel moves from device memory by design and the sender-row
+    re-reads its L2 serves."""
     n = ops["view0"].shape[0]
     f = ops["ginv"].shape[0]
     cells = n * n
@@ -462,6 +494,7 @@ def dense_core_work(ops):
     per_cell = (4 + 4 + 1 + 2) + (4 + 1 + 2 + 4)  # read rows, view0, age, susp; write 4
     bytes_moved = cells * per_cell + vectors + 2 * 4 * n  # + self_rumor, known_cnt
     kernel_bytes = cells * DENSE_KERNEL_BYTES_PER_CELL + vectors + 2 * 4 * n
+    l2_bytes = (f - 1) * cells * DENSE_L2_REREAD_BYTES
     deliveries = int(ops["edge_ok"].sum()) * n
     n_ops = (
         cells * (DENSE_OPS_PER_CELL + DENSE_OPS_PER_SENDER_CELL)
@@ -469,12 +502,16 @@ def dense_core_work(ops):
         + f * n * OPS_PER_EDGE_TEST
         + n * DENSE_OPS_PER_ROW
     )
-    return bytes_moved, n_ops, kernel_bytes
+    return bytes_moved, n_ops, kernel_bytes, l2_bytes
 
 
 def phase_dense_kernel_vs_plain(torch):
-    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core, tick_core_reference
-    from scalecube_cluster_tpu_torch.testing import random_tick_operands
+    from scalecube_cluster_tpu_torch.ops.tick_core import (
+        TILE_COLS,
+        tick_core,
+        tick_core_reference,
+    )
+    from scalecube_cluster_tpu_torch.testing import random_tick_operands, tile_edge_tick_operands
 
     consts = dict(spread=42, sweep=86, susp_ticks=350, age_stale=120)
     names = ("view2", "age2", "susp2", "rows_next", "self_rumor", "known_cnt")
@@ -494,23 +531,37 @@ def phase_dense_kernel_vs_plain(torch):
         reps_k, reps_p = (50, 5) if n > 4096 else (200, 20)
         k_ms = _time_cuda(torch, lambda: tick_core(*args, **consts), reps_k)
         p_ms = _time_cuda(torch, lambda: tick_core_reference(*args, **consts), reps_p)
-        bytes_moved, n_ops, kernel_bytes = dense_core_work(ops)
+        bytes_moved, n_ops, kernel_bytes, l2_bytes = dense_core_work(ops)
         row = {
             "n": n, "f": f, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
             **_bound_row(bytes_moved, n_ops),
             "kernel_bytes": kernel_bytes,
             "kernel_bytes_ms": kernel_bytes / HBM_BYTES_PER_S * 1e3,
+            "l2_reread_bytes": l2_bytes,
         }
         rows[n] = row
         say(
             f"[6] tick_core n={n} f={f}: bit-equal to plain (max_abs_err {err}); "
             f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
             f"by {row['bound_by']} ({bytes_moved} B = {row['bytes_ms']:.4f} ms; "
-            f"{n_ops} int32 ops = {row['ops_ms']:.4f} ms); this kernel moves {kernel_bytes} B "
-            f"= {row['kernel_bytes_ms']:.4f} ms; library_ms null — no single PyTorch "
+            f"{n_ops} int32 ops = {row['ops_ms']:.4f} ms); the kernel moves {kernel_bytes} B "
+            f"= {row['kernel_bytes_ms']:.4f} ms from device memory by design and re-reads "
+            f"{l2_bytes} B of sender rows from L2; library_ms null — no single PyTorch "
             "call computes this function"
         )
         del ops, args
+    for n, seed in ((264, 3), (1032, 4)):
+        ops = {
+            k: torch.from_numpy(v).cuda()
+            for k, v in tile_edge_tick_operands(n, 3, seed=seed, tile=TILE_COLS,
+                                                susp_ticks=350).items()
+        }
+        got = tick_core(*ops.values(), **consts)
+        want = tick_core_reference(*ops.values(), **consts)
+        torch.cuda.synchronize()
+        err = _compare(names, got, want, f"of tick_core at tile edges n={n}")
+        say(f"[6] tick_core tile edges n={n} (tile {TILE_COLS} columns): bit-equal to plain "
+            f"(max_abs_err {err})")
     return rows
 
 

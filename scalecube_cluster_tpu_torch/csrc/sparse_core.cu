@@ -23,29 +23,48 @@
 //     (the write-back pin rule), bit 1 = a live viewer holds SUSPECT,
 //     bit 2 = a live viewer holds DEAD.
 //
-// Hopper differences from the TPU design: blocks run in parallel in no
-// order, so the aggregate that the TPU grid OR-accumulated in one revisited
-// block is an atomicOr into a zero-filled [S] vector (OR is order-free, so
-// the result is exact), and the self-rumor is an atomicMax into a [N]
-// vector the wrapper fills with -1. Each CTA loads its own fan-out indices,
-// edge bits and point lanes into shared memory; there is no scalar prefetch.
+// What bounds it on the card: bytes and instructions, both near. The
+// function must read 7 bytes per cell (slab i32, age i8, susp i16) and
+// write 7: about 235 MB a tick at 32768 x 512, 0.070 ms at 3.35 TB/s. It
+// needs about 62 integer operations per cell of an active lane, 30 per cell
+// of an idle lane, 12 per sender cell and 2 per delivered record, the
+// point, own-lane and edge tests once per row (counted in
+// chip_smoke.py::core_work): 1.1e9 on the smoke test's operands, 0.067 ms
+// at the card's INT32 rate. An earlier kernel (one CTA per 32-row block
+// across all S lanes) took 3.5x the bound: the f sender windows, slab and
+// age, were read again for each receiver block and the 80 MB of slab and
+// age does not fit the 50 MB L2 (about 29 B per cell moved); every cell
+// reloaded six shared arrays and tested the point lanes; and each of its
+// 1,024 CTAs did an atomicOr on every aggregate word. Staging the windows
+// in shared memory cannot help: the f readers of a sender block are
+// different CTAs, each of which also reads f - 1 other blocks.
 //
-// What bounds it on the card: bytes, narrowly. The function must read 7
-// bytes per cell (slab i32, age i8, susp i16) and write 7: about 235 MB a
-// tick at 32768 x 512, 0.070 ms at 3.35 TB/s. It needs about 62 integer
-// operations per cell of an active lane, 30 per cell of an idle lane, 12
-// per sender cell and 2 per delivered record, the point, own-lane and
-// edge tests once per row (counted in chip_smoke.py::core_work): 1.1e9 on
-// the smoke test's operands, 0.067 ms at the card's INT32 rate. This
-// kernel does more (it repeats the per-row and per-sender work in every
-// cell) and reads each sender window again (f x (4 + 1) B/cell more, 29
-// B/cell in all at f = 3), which the L2 may catch.
-//
-// Design: the simple one. One CTA per 32-row receiver block covering all S
-// lanes (N/32 CTAs), threads along S so every warp reads a row segment
-// coalesced; sender windows are read straight from global memory (the L2
-// holds them). No shared-memory staging of windows, no TMA, no vectorised
-// int8 loads yet: that is later work.
+// Design:
+//   - The grid is (receiver rows, lane tile) with the rows fastest
+//     (blockIdx.x), so the card runs every row block of one tile at once,
+//     and a sender cell's f reads fall within the time L2 holds the band
+//     (slab, age)[:, tile] (N x 128 x 5 B = 21 MB at n=32768): slab and
+//     age come from device memory once. They are the band as well as the
+//     receiver's own cells, so both reads go under an L2 evict-last
+//     policy; susp and the three outputs stream evict-first (ld/st .cs).
+//   - Each thread owns 4 consecutive lanes: slab moves as 16-byte
+//     accesses, age as one 32-bit word and susp as one 64-bit word. When S
+//     is not a multiple of 4, or a plane is not aligned, a path that moves
+//     one lane at a time takes the operands; the ragged tail is masked.
+//   - Row and sender work is out of the cell loop: a sender's row, FD and
+//     SYNC lanes and the edge bit come from shared memory once per (row,
+//     channel) and thread; its point lanes, the receiver's point lanes and
+//     the own lane are tested once per (row, channel) or row against the
+//     thread's 4-lane span (the own lane only where one of the span's
+//     subjects is a row of the CTA). The rare spans that hold one, and dead
+//     receiver rows, take the general path.
+//   - Offsets are 32-bit: the wrapper refuses n*S >= 2^31.
+//   - The aggregate is OR-ed over the CTA's rows (blocks x 32 of them) in
+//     shared memory, then one atomicOr per lane word and CTA into the [S]
+//     vector the launcher zeroes on the stream; the self-rumor is an
+//     atomicMax into the [N] vector it fills with -1. Both are exact in any
+//     order. At the main path's shape one block a CTA (1,024 atomics per
+//     lane word) was as fast as four: the atomics are not what costs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,8 +75,121 @@ namespace {
 
 constexpr int kGroup = 32;
 constexpr int kMaxFanout = 8;
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
+constexpr int kMaxBlocks = 4;
+constexpr int kMaxRows = kGroup * kMaxBlocks;
+constexpr int kQ = swim::kQuad;
+constexpr int kMaxTile = kQ * kThreads;
 
+struct Consts {
+  int spread;
+  int susp_ticks;
+  int age_stale;
+  int sweep;
+};
+
+// The thread's ``nv`` lanes of a slab row and its ages, packed in one
+// word (the band: kept in L2). Lanes past ``nv`` read as UNKNOWN at age 0.
+template <bool kVec>
+__device__ __forceinline__ void load_band(const int32_t* slab, const int8_t* age, int off,
+                                          int nv, uint64_t keep, int (&w)[kQ], uint32_t& ages) {
+  if (kVec) {
+    const int4 x = swim::load_kept_x4(slab + off, keep);
+    w[0] = x.x;
+    w[1] = x.y;
+    w[2] = x.z;
+    w[3] = x.w;
+    ages = swim::load_kept_u32(age + off, keep);
+  } else {
+    ages = 0;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      w[q] = q < nv ? slab[off + q] : -1;
+      ages |= q < nv ? (uint32_t)(uint8_t)age[off + q] << (8 * q) : 0u;
+    }
+  }
+}
+
+// One channel's sender quad: the sender's SYNC and FD point updates (SYNC
+// wins a collision) make a cell young with the point key; young records
+// are offered to the lanes' maxima (a stale one as -1, which changes
+// neither).
+__device__ __forceinline__ void deliver(int (&w)[kQ], uint32_t ages, int4 snd, int j0,
+                                        const int32_t* fd_key, const int32_t* sy_key,
+                                        int spread, int (&best_any)[kQ],
+                                        int (&best_alive)[kQ]) {
+  int a[kQ];
+  swim::unpack_i8x4(ages, a);
+  const unsigned d_fd = (unsigned)(snd.y - j0);
+  const unsigned d_sy = (unsigned)(snd.z - j0);
+  if (d_fd < kQ || d_sy < kQ) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (d_sy == (unsigned)q) {
+        w[q] = sy_key[snd.x];
+        a[q] = 0;
+      } else if (d_fd == (unsigned)q) {
+        w[q] = fd_key[snd.x];
+        a[q] = 0;
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) swim::offer(a[q] < spread ? w[q] : -1, best_any[q], best_alive[q]);
+}
+
+// The receiver's countdowns (single-use, evict-first).
+template <bool kVec>
+__device__ __forceinline__ void load_susp(const int16_t* susp, int off, int nv, int (&s)[kQ]) {
+  if (kVec) {
+    swim::unpack_i16x4(__ldcs(reinterpret_cast<const uint2*>(susp + off)), s);
+  } else {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) s[q] = q < nv ? susp[off + q] : 0;
+  }
+}
+
+// The three outputs of the thread's lanes (evict-first).
+template <bool kVec>
+__device__ __forceinline__ void store_cells(int32_t* slab2, int8_t* age2, int16_t* susp2, int off,
+                                            int nv, const int (&key)[kQ], const int (&a)[kQ],
+                                            const int (&s)[kQ]) {
+  if (kVec) {
+    __stcs(reinterpret_cast<int4*>(slab2 + off), make_int4(key[0], key[1], key[2], key[3]));
+    __stcs(reinterpret_cast<unsigned int*>(age2 + off), swim::pack_i8x4(a));
+    __stcs(reinterpret_cast<uint2*>(susp2 + off), swim::pack_i16x4(s));
+  } else {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (q < nv) {
+        slab2[off + q] = key[q];
+        age2[off + q] = static_cast<int8_t>(a[q]);
+        susp2[off + q] = static_cast<int16_t>(s[q]);
+      }
+    }
+  }
+}
+
+// One cell after delivery: the merge lattice, the inactive-lane and
+// dead-row freezes, the countdown, DEAD transition and aging. Returns the
+// cell's aggregate bits (0 for a dead row).
+__device__ __forceinline__ int cell_update(int local, int a0, int s0, int best_any,
+                                           int best_alive, bool point, bool own, bool active,
+                                           bool alive_row, const Consts& k, int& key, int& age,
+                                           int& susp) {
+  int merged = swim::merge_key(local, best_any, best_alive);
+  if (!active || !alive_row) merged = local;
+  const swim::Cell cell = swim::countdown(local, merged, a0, s0, point, alive_row, active,
+                                          k.susp_ticks, k.age_stale);
+  key = cell.key;
+  age = cell.age;
+  susp = cell.susp;
+  return alive_row ? swim::aggregate_bits(cell, own, k.spread, k.sweep) : 0;
+}
+
+// kF > 0: exactly kF channels, their window loads issued together; kF == 0:
+// f channels, one at a time. kVec: S % 4 == 0 and aligned planes.
+template <int kF, bool kVec>
 __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const int32_t* __restrict__ slab, const int8_t* __restrict__ age,
     const int16_t* __restrict__ susp, const int32_t* __restrict__ slot_subj,
@@ -65,130 +197,204 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const uint8_t* __restrict__ edge_ok, const uint8_t* __restrict__ alive,
     const int32_t* __restrict__ fd_slot, const int32_t* __restrict__ sy_slot,
     const int32_t* __restrict__ fd_key, const int32_t* __restrict__ sy_key,
-    int32_t* __restrict__ slab2, int8_t* __restrict__ age2,
-    int16_t* __restrict__ susp2, int32_t* __restrict__ self_rumor,
-    int32_t* __restrict__ aggr, int n, int s, int f, int spread,
-    int susp_ticks, int age_stale, int sweep) {
-  const int blk = blockIdx.x;
+    int32_t* __restrict__ slab2, int8_t* __restrict__ age2, int16_t* __restrict__ susp2,
+    int32_t* __restrict__ self_rumor, int32_t* __restrict__ aggr, int n, int s, int f,
+    int tile, int blocks, Consts k) {
+  const int fan = kF > 0 ? kF : f;
   const int nb = n / kGroup;
+  const int row0 = blockIdx.x * blocks * kGroup;
+  const int nrows = min(blocks * kGroup, n - row0);
+  const int cols = tile / kQ;  // threads along a row
+  const int rstep = kThreads / cols;  // rows in flight in the CTA
+  const int tx = threadIdx.x % cols;
+  const int j0 = blockIdx.y * tile + kQ * tx;
+  const int nv = min(max(s - j0, 0), kQ);  // the span's lanes inside the slab
 
-  // Sender rows and their point lanes, per channel and receiver row.
-  __shared__ int64_t w_row[kMaxFanout][kGroup];
-  __shared__ int w_fd[kMaxFanout][kGroup];
-  __shared__ int w_sy[kMaxFanout][kGroup];
-  __shared__ int w_fdk[kMaxFanout][kGroup];
-  __shared__ int w_syk[kMaxFanout][kGroup];
-  __shared__ uint8_t w_ok[kMaxFanout][kGroup];
-  // The receiver rows' own point lanes and liveness.
-  __shared__ int r_fd[kGroup];
-  __shared__ int r_sy[kGroup];
-  __shared__ int r_fdk[kGroup];
-  __shared__ int r_syk[kGroup];
-  __shared__ uint8_t r_alive[kGroup];
+  // Per (receiver row, channel): the sender row, its FD and SYNC lanes, the
+  // edge bit.
+  __shared__ int4 s_send[kMaxRows][kMaxFanout];
+  // Per receiver row: its own FD and SYNC lanes, its liveness.
+  __shared__ int4 s_recv[kMaxRows];
+  __shared__ int s_aggr[kMaxTile];
 
-  for (int i = threadIdx.x; i < f * kGroup; i += blockDim.x) {
-    const int c = i / kGroup;
-    const int r = i % kGroup;
-    const int64_t src = swim::window_row(kGroup, ginv[c * nb + blk], rots[c * nb + blk], r);
-    w_row[c][r] = src;
-    w_fd[c][r] = fd_slot[src];
-    w_sy[c][r] = sy_slot[src];
-    w_fdk[c][r] = fd_key[src];
-    w_syk[c][r] = sy_key[src];
-    w_ok[c][r] = edge_ok[(int64_t)c * n + (int64_t)blk * kGroup + r];
+  for (int i = threadIdx.x; i < fan * nrows; i += kThreads) {
+    const int c = i / nrows;
+    const int row = row0 + i % nrows;
+    const int b = row / kGroup;
+    const int src =
+        (int)swim::window_row(kGroup, ginv[c * nb + b], rots[c * nb + b], row % kGroup);
+    s_send[row - row0][c] = make_int4(src, fd_slot[src], sy_slot[src], edge_ok[c * n + row]);
   }
-  for (int r = threadIdx.x; r < kGroup; r += blockDim.x) {
-    const int row = blk * kGroup + r;
-    r_fd[r] = fd_slot[row];
-    r_sy[r] = sy_slot[row];
-    r_fdk[r] = fd_key[row];
-    r_syk[r] = sy_key[row];
-    r_alive[r] = alive[row];
-  }
+  for (int r = threadIdx.x; r < nrows; r += kThreads)
+    s_recv[r] = make_int4(fd_slot[row0 + r], sy_slot[row0 + r], alive[row0 + r], 0);
+  for (int t = threadIdx.x; t < tile; t += kThreads) s_aggr[t] = 0;
   __syncthreads();
 
-  for (int j = threadIdx.x; j < s; j += blockDim.x) {
-    const int subj = slot_subj[j];
-    const bool active = subj >= 0;
-    int bits = 0;
-    for (int r = 0; r < kGroup; ++r) {
-      const int row = blk * kGroup + r;
-      int best_any = -1;
-      int best_alive = -1;
-      if (active) {
-        for (int c = 0; c < f; ++c) {
-          if (!w_ok[c][r]) continue;
-          const int64_t off = w_row[c][r] * s + j;
-          int w = slab[off];
-          int a = age[off];
-          if (j == w_sy[c][r]) {
-            w = w_syk[c][r];
-            a = 0;
-          } else if (j == w_fd[c][r]) {
-            w = w_fdk[c][r];
-            a = 0;
+  // Lane facts, fixed across rows.
+  int subj[kQ];
+  bool active[kQ];
+  bool any_active = false;
+  bool own_rows = false;  // some subject of the span is a row of this CTA
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) {
+    subj[q] = q < nv ? slot_subj[j0 + q] : -1;
+    active[q] = subj[q] >= 0;
+    any_active |= active[q];
+    own_rows |= active[q] && (unsigned)(subj[q] - row0) < (unsigned)nrows;
+  }
+  int bits[kQ] = {0, 0, 0, 0};
+
+  const uint64_t keep = swim::evict_last_policy();
+  if (nv > 0) {
+    for (int r = threadIdx.x / cols; r < nrows; r += rstep) {
+      const int row = row0 + r;
+      int best_any[kQ], best_alive[kQ];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) best_any[q] = best_alive[q] = -1;
+      // An inactive lane delivers nothing: skip the windows of an idle span.
+      if (any_active) {
+        if (kF > 0) {
+          int w[kF > 0 ? kF : 1][kQ];
+          uint32_t wa[kF > 0 ? kF : 1];
+#pragma unroll
+          for (int c = 0; c < kF; ++c) {
+            const int4 snd = s_send[r][c];
+            if (snd.w) load_band<kVec>(slab, age, snd.x * s + j0, nv, keep, w[c], wa[c]);
           }
-          if (a < spread) swim::offer(w, best_any, best_alive);
+#pragma unroll
+          for (int c = 0; c < kF; ++c) {
+            const int4 snd = s_send[r][c];
+            if (snd.w)
+              deliver(w[c], wa[c], snd, j0, fd_key, sy_key, k.spread, best_any, best_alive);
+          }
+        } else {
+          for (int c = 0; c < fan; ++c) {
+            const int4 snd = s_send[r][c];
+            if (!snd.w) continue;
+            int w[kQ];
+            uint32_t wa;
+            load_band<kVec>(slab, age, snd.x * s + j0, nv, keep, w, wa);
+            deliver(w, wa, snd, j0, fd_key, sy_key, k.spread, best_any, best_alive);
+          }
         }
       }
 
-      const int64_t loff = (int64_t)row * s + j;
-      int local = slab[loff];
-      int a0 = age[loff];
-      bool point = false;
-      if (j == r_sy[r]) {
-        local = r_syk[r];
-        a0 = 0;
-        point = true;
-      } else if (j == r_fd[r]) {
-        local = r_fdk[r];
-        a0 = 0;
-        point = true;
+      const int off = row * s + j0;
+      int v[kQ], a[kQ], sl[kQ];
+      uint32_t ages;
+      load_band<kVec>(slab, age, off, nv, keep, v, ages);
+      swim::unpack_i8x4(ages, a);
+      load_susp<kVec>(susp, off, nv, sl);
+      const int4 rcv = s_recv[r];
+      const bool alive_row = rcv.z != 0;
+      const unsigned d_fd = (unsigned)(rcv.x - j0);
+      const unsigned d_sy = (unsigned)(rcv.y - j0);
+      bool own_here = false;
+      if (own_rows) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) own_here |= subj[q] == row;
       }
-
-      const bool own = subj == row;
-      if (own) {
-        if (best_any >= 0) atomicMax(&self_rumor[row], best_any);
-        best_any = -1;
-        best_alive = -1;
+      int key[kQ], a2[kQ], s2[kQ];
+      if (d_fd >= kQ && d_sy >= kQ && !own_here && alive_row) {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q)
+          bits[q] |= cell_update(v[q], a[q], sl[q], best_any[q], best_alive[q], false, false,
+                                 active[q], true, k, key[q], a2[q], s2[q]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          int local = v[q];
+          int a0 = a[q];
+          bool point = false;
+          if (d_sy == (unsigned)q) {
+            local = sy_key[row];
+            a0 = 0;
+            point = true;
+          } else if (d_fd == (unsigned)q) {
+            local = fd_key[row];
+            a0 = 0;
+            point = true;
+          }
+          const bool own = subj[q] == row;
+          int ba = best_any[q];
+          int bal = best_alive[q];
+          if (own) {
+            if (ba >= 0) atomicMax(&self_rumor[row], ba);
+            ba = -1;
+            bal = -1;
+          }
+          bits[q] |= cell_update(local, a0, sl[q], ba, bal, point, own, active[q], alive_row, k,
+                                 key[q], a2[q], s2[q]);
+        }
       }
-
-      // Merge lattice (ops/merge.py::merge_views).
-      int merged = swim::merge_key(local, best_any, best_alive);
-      const bool alive_row = r_alive[r] != 0;
-      if (!active || !alive_row) merged = local;
-
-      // Suspicion countdown, DEAD transition, aging.
-      const swim::Cell cell = swim::countdown(local, merged, a0, susp[loff], point,
-                                              alive_row, active, susp_ticks, age_stale);
-      slab2[loff] = cell.key;
-      age2[loff] = static_cast<int8_t>(cell.age);
-      susp2[loff] = static_cast<int16_t>(cell.susp);
-      if (alive_row) bits |= swim::aggregate_bits(cell, own, spread, sweep);
+      store_cells<kVec>(slab2, age2, susp2, off, nv, key, a2, s2);
     }
-    if (bits) atomicOr(&aggr[j], bits);
+  }
+
+  // The aggregate: OR over the CTA's rows, then one atomic per lane word.
+#pragma unroll
+  for (int q = 0; q < kQ; ++q)
+    if (q < nv && bits[q]) atomicOr(&s_aggr[kQ * tx + q], bits[q]);
+  __syncthreads();
+  for (int t = threadIdx.x; t < tile; t += kThreads) {
+    const int lane = blockIdx.y * tile + t;
+    if (lane < s && s_aggr[t]) atomicOr(&aggr[lane], s_aggr[t]);
   }
 }
 
-}  // namespace
+bool aligned(const void* p, uintptr_t bytes) { return ((uintptr_t)p & (bytes - 1)) == 0; }
 
-// Launches the kernel on ``stream``; ``self_rumor`` must hold -1 and ``aggr``
-// 0 on entry. Returns the cudaError_t of the launch (0 = success).
-extern "C" int sparse_core_launch(
-    const void* slab, const void* age, const void* susp, const void* slot_subj,
-    const void* ginv, const void* rots, const void* edge_ok, const void* alive,
-    const void* fd_slot, const void* sy_slot, const void* fd_key,
-    const void* sy_key, void* slab2, void* age2, void* susp2, void* self_rumor,
-    void* aggr, int n, int s, int f, int spread, int susp_ticks, int age_stale,
-    int sweep, void* stream) {
-  if (n % kGroup != 0 || f > kMaxFanout || f < 1) return (int)cudaErrorInvalidValue;
-  sparse_core_kernel<<<n / kGroup, kThreads, 0, (cudaStream_t)stream>>>(
+template <int kF, bool kVec>
+void launch(dim3 grid, cudaStream_t stream, const void* slab, const void* age,
+            const void* susp, const void* slot_subj, const void* ginv, const void* rots,
+            const void* edge_ok, const void* alive, const void* fd_slot, const void* sy_slot,
+            const void* fd_key, const void* sy_key, void* slab2, void* age2, void* susp2,
+            void* self_rumor, void* aggr, int n, int s, int f, int tile, int blocks, Consts k) {
+  sparse_core_kernel<kF, kVec><<<grid, kThreads, 0, stream>>>(
       (const int32_t*)slab, (const int8_t*)age, (const int16_t*)susp,
       (const int32_t*)slot_subj, (const int32_t*)ginv, (const int32_t*)rots,
       (const uint8_t*)edge_ok, (const uint8_t*)alive, (const int32_t*)fd_slot,
       (const int32_t*)sy_slot, (const int32_t*)fd_key, (const int32_t*)sy_key,
       (int32_t*)slab2, (int8_t*)age2, (int16_t*)susp2, (int32_t*)self_rumor,
-      (int32_t*)aggr, n, s, f, spread, susp_ticks, age_stale, sweep);
+      (int32_t*)aggr, n, s, f, tile, blocks, k);
+}
+
+}  // namespace
+
+// Fills ``self_rumor`` with -1 and zeroes ``aggr`` on ``stream``, then
+// launches the kernel there. ``tile`` is the lanes of one CTA (a power of
+// two from 16 to 512), ``blocks`` the 32-row blocks it covers (1 to 4).
+// Returns the cudaError_t of the launch (0 = success).
+extern "C" int sparse_core_launch(
+    const void* slab, const void* age, const void* susp, const void* slot_subj,
+    const void* ginv, const void* rots, const void* edge_ok, const void* alive,
+    const void* fd_slot, const void* sy_slot, const void* fd_key,
+    const void* sy_key, void* slab2, void* age2, void* susp2, void* self_rumor,
+    void* aggr, int n, int s, int f, int tile, int blocks, int spread, int susp_ticks,
+    int age_stale, int sweep, void* stream) {
+  if (n <= 0 || n % kGroup != 0 || s <= 0 || f > kMaxFanout || f < 1 ||
+      (long long)n * s >= (1LL << 31) || tile < 16 || tile > kMaxTile ||
+      (tile & (tile - 1)) != 0 || blocks < 1 || blocks > kMaxBlocks)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = cudaMemsetAsync(self_rumor, 0xff, sizeof(int32_t) * n, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(aggr, 0, sizeof(int32_t) * s, st);
+  if (err != cudaSuccess) return (int)err;
+  const bool vec = s % kQ == 0 && aligned(slab, 16) && aligned(slab2, 16) && aligned(age, 4) &&
+                   aligned(age2, 4) && aligned(susp, 8) && aligned(susp2, 8);
+  const int nb = n / kGroup;
+  const dim3 grid((nb + blocks - 1) / blocks, (s + tile - 1) / tile);
+  const Consts k{spread, susp_ticks, age_stale, sweep};
+#define SPARSE_CORE_ARGS                                                                      \
+  grid, st, slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, fd_slot, sy_slot, fd_key, \
+      sy_key, slab2, age2, susp2, self_rumor, aggr, n, s, f, tile, blocks, k
+  if (f == 3 && vec)
+    launch<3, true>(SPARSE_CORE_ARGS);
+  else if (vec)
+    launch<0, true>(SPARSE_CORE_ARGS);
+  else
+    launch<0, false>(SPARSE_CORE_ARGS);
+#undef SPARSE_CORE_ARGS
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,14 @@
 // Device helpers shared by the port's SWIM kernels: the record-key layout
 // of scalecube_cluster_tpu_torch/ops/merge.py, the sender-window
 // addressing, the delivered maxima, the merge lattice (merge_views) and
-// the per-cell suspicion countdown, DEAD transition and aging. Every
-// kernel source that includes this header is rebuilt when it changes
-// (ops/cuda_build.py hashes the headers with each source).
+// the per-cell suspicion countdown, DEAD transition and aging; for the
+// two cores that move four lanes a thread, the packing of int8 and int16
+// lanes into one word and the L2 evict-last loads of the sender band.
+// Every kernel source that includes this header is rebuilt when it
+// changes (ops/cuda_build.py hashes the headers with each source).
 #pragma once
 
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace swim {
@@ -86,6 +89,68 @@ __device__ __forceinline__ Cell countdown(int local, int merged, int a0, int s_l
   cell.susp = (suspect_key(cell.key) && active) ? ((rearm || !armed) ? susp_ticks : left0) : 0;
   if (!alive_row) cell.susp = s_loc;
   return cell;
+}
+
+// Four consecutive lanes a thread owns (the redesigned cores): int32
+// planes move as one 16-byte access, int8 planes as one 32-bit word and
+// int16 planes as one 64-bit word.
+constexpr int kQuad = 4;
+
+// The four int8 lanes of a 32-bit word, sign-extended.
+__device__ __forceinline__ void unpack_i8x4(uint32_t w, int (&v)[kQuad]) {
+#pragma unroll
+  for (int q = 0; q < kQuad; ++q) v[q] = (int)(int8_t)(w >> (8 * q));
+}
+
+// Four lanes' low bytes as one 32-bit word (int8 truncation).
+__device__ __forceinline__ uint32_t pack_i8x4(const int (&v)[kQuad]) {
+  const uint32_t lo = __byte_perm(v[0], v[1], 0x0040);
+  const uint32_t hi = __byte_perm(v[2], v[3], 0x0040);
+  return __byte_perm(lo, hi, 0x5410);
+}
+
+// The four int16 lanes of a 64-bit word, sign-extended.
+__device__ __forceinline__ void unpack_i16x4(uint2 w, int (&v)[kQuad]) {
+  v[0] = (int)(int16_t)(w.x & 0xffffu);
+  v[1] = (int)w.x >> 16;
+  v[2] = (int)(int16_t)(w.y & 0xffffu);
+  v[3] = (int)w.y >> 16;
+}
+
+// Four lanes' low halves as one 64-bit word (int16 truncation).
+__device__ __forceinline__ uint2 pack_i16x4(const int (&v)[kQuad]) {
+  return make_uint2(__byte_perm(v[0], v[1], 0x5410), __byte_perm(v[2], v[3], 0x5410));
+}
+
+// An L2 policy that keeps lines past the streams (evict-last): for the
+// sender band, which f receiver blocks read at unrelated times.
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  return policy;
+}
+
+// 16 bytes of a read-only plane under ``policy``.
+__device__ __forceinline__ int4 load_kept_x4(const int32_t* p, uint64_t policy) {
+  int4 v;
+  asm("ld.global.nc.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p), "l"(policy));
+  return v;
+}
+
+// 4 bytes of a read-only plane under ``policy``.
+__device__ __forceinline__ uint32_t load_kept_u32(const void* p, uint64_t policy) {
+  uint32_t v;
+  asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+
+// Offer one channel's four delivered records to the lanes' maxima.
+__device__ __forceinline__ void offer_x4(const int (&w)[kQuad], int (&best_any)[kQuad],
+                                         int (&best_alive)[kQuad]) {
+#pragma unroll
+  for (int q = 0; q < kQuad; ++q) offer(w[q], best_any[q], best_alive[q]);
 }
 
 // The sparse aggregate bits of one cell of a live row: bit 0 the lane

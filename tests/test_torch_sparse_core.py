@@ -16,7 +16,7 @@ import torch
 
 from scalecube_cluster_tpu_torch.ops import cuda_build
 from scalecube_cluster_tpu_torch.ops import sparse_core as sc
-from scalecube_cluster_tpu_torch.testing import random_operands
+from scalecube_cluster_tpu_torch.testing import random_operands, tile_edge_operands
 
 FOLD = frozenset({"countdown", "points", "wb_mask", "view_rows"})
 CONSTS = dict(spread=6, susp_ticks=20, age_stale=120, sweep=14)
@@ -90,13 +90,70 @@ def test_wrapper_rejects_unsupported_geometry():
         sc.sparse_core(*many.values(), **CONSTS)
 
 
+@pytest.mark.parametrize(
+    "n,s,tile,blocks,want",
+    [
+        (64, 96, None, None, (2, 1, 128, 1)),
+        (1024, 100, None, None, (32, 1, 128, 1)),
+        (1024, 260, 32, 2, (16, 9, 32, 2)),
+        (32768, 512, None, None, (1024, 4, 128, 1)),
+        (32768, 512, 64, 4, (256, 8, 64, 4)),
+        (524288, 4095, None, None, (16384, 32, 128, 1)),
+    ],
+)
+def test_launch_geometry(n, s, tile, blocks, want):
+    """The grid is (CTAs of ``blocks`` 32-row blocks, lane tiles), the last
+    of each ragged; the defaults are TILE_LANES and ROW_BLOCKS."""
+    assert sc.launch_geometry(n, s, tile, blocks) == want
+
+
+@pytest.mark.parametrize(
+    "n,s,tile,blocks,match",
+    [(524320, 4096, None, None, "32-bit"), (1024, 512, 48, None, "tile"),
+     (1024, 512, 1024, None, "tile"), (1024, 512, None, 5, "row blocks"),
+     (1024, 512, None, 0, "row blocks")],
+    ids=["n*S-past-2**31", "tile-48", "tile-1024", "blocks-5", "blocks-0"],
+)
+def test_launch_geometry_refuses(n, s, tile, blocks, match):
+    """Past the kernel's 32-bit offsets (n*S >= 2**31), tiles that are not a
+    power of two from 16 to 512 lanes, and more than MAX_ROW_BLOCKS row
+    blocks a CTA, raise."""
+    with pytest.raises(ValueError, match=match):
+        sc.launch_geometry(n, s, tile, blocks)
+
+
+def test_tile_edge_operands_reach_the_edges():
+    """The tile-edge operands put point lanes on both sides of each lane
+    tile boundary and leave the second tile without an active lane."""
+    ops = tile_edge_operands(1024, 260, seed=1)
+    assert sc.TILE_LANES == 128
+    for name in ("fd_slot", "sy_slot"):
+        assert {0, 127, 128, 255, 256, 259} <= set(ops[name].tolist())
+    assert (ops["slot_subj"][128:256] < 0).all() and (ops["slot_subj"] >= 0).any()
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_reference_on_card():
+@pytest.mark.parametrize(
+    "n,s,edges,misalign",
+    [(1024, 256, False, False), (1024, 100, True, False), (1024, 260, True, False),
+     (1024, 101, True, False), (512, 128, False, True)],
+    ids=["S256", "S100-edges", "S260-edges", "S101-unaligned-rows", "S128-misaligned"],
+)
+def test_cuda_kernel_matches_reference_on_card(n, s, edges, misalign):
     """On the card: the CUDA kernel equals the plain version bit for bit and
-    counts exactly one launch."""
+    counts exactly one launch; at S = 100 and 260 with point lanes beside
+    every tile boundary and one tile with no active lane, at S = 101 (rows
+    off 16-byte alignment) and with misaligned planes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    ops = {k: torch.from_numpy(v).cuda() for k, v in random_operands(1024, 256, 3, seed=4).items()}
+    draw = tile_edge_operands if edges else random_operands
+    ops = {k: torch.from_numpy(v).cuda() for k, v in draw(n, s, 3, seed=4).items()}
+    if misalign:
+        for k in ("slab", "age", "susp"):
+            t = ops[k]
+            buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+            ops[k] = buf[1 : 1 + t.numel()].view(t.shape)
+            ops[k].copy_(t)
     before = sc.sparse_core.launches
     got = sc.sparse_core(*ops.values(), **CONSTS)
     want = sc.sparse_core_reference(*ops.values(), **CONSTS)

@@ -17,7 +17,7 @@ import torch
 
 from scalecube_cluster_tpu_torch.ops import cuda_build
 from scalecube_cluster_tpu_torch.ops import tick_core as tc
-from scalecube_cluster_tpu_torch.testing import random_tick_operands
+from scalecube_cluster_tpu_torch.testing import random_tick_operands, tile_edge_tick_operands
 
 CONSTS = dict(spread=6, sweep=14, susp_ticks=20, age_stale=120)
 OUTPUTS = ("view2", "age2", "susp2", "rows_next", "self_rumor", "known_cnt")
@@ -99,14 +99,70 @@ def test_wrapper_rejects_unsupported_geometry():
         tc.tick_core(*many.values(), **CONSTS)
 
 
+@pytest.mark.parametrize(
+    "n,tile,want",
+    [
+        (64, None, (8, 1, 256)),
+        (264, None, (33, 2, 256)),
+        (1032, 128, (129, 9, 128)),
+        (10240, None, (1280, 40, 256)),
+        (10240, 512, (1280, 20, 512)),
+        (46336, None, (5792, 181, 256)),
+    ],
+)
+def test_launch_geometry(n, tile, want):
+    """The grid is (n/8 receiver groups, column tiles), the last tile ragged
+    when the tile does not divide n; the default tile is TILE_COLS."""
+    assert tc.launch_geometry(n, tile) == want
+
+
+@pytest.mark.parametrize(
+    "n,tile,match",
+    [(46344, None, "32-bit"), (10240, 64, "tile"), (10240, 384, "tile"), (10240, 1024, "tile")],
+    ids=["n*n-past-2**31", "tile-64", "tile-384", "tile-1024"],
+)
+def test_launch_geometry_refuses(n, tile, match):
+    """Past the kernel's 32-bit offsets (n*n >= 2**31), and tiles that are
+    not a multiple of 32 threads of 4 columns up to 128 threads, raise."""
+    with pytest.raises(ValueError, match=match):
+        tc.launch_geometry(n, tile)
+
+
+def test_tile_edge_operands_put_fd_targets_on_tile_boundaries():
+    """The tile-edge operands' FD targets sit on both sides of each tile
+    boundary, for the card tests and chip_smoke.py."""
+    ops = tile_edge_tick_operands(1032, seed=1)
+    assert {0, 255, 256, 511, 512, 767, 768, 1023, 1024, 1031} <= set(ops["fd_tgt"].tolist())
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    address (the kernel's one-column-at-a-time path)."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1 : 1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,f", [(256, 3), (1024, 3), (512, 4)])
-def test_cuda_kernel_matches_reference_on_card(n, f):
+@pytest.mark.parametrize(
+    "n,f,edges,misalign",
+    [(256, 3, False, False), (1024, 3, False, False), (512, 4, False, False),
+     (264, 3, True, False), (1032, 3, True, False), (264, 2, True, True)],
+    ids=["256-3", "1024-3", "512-4", "264-3-edges", "1032-3-edges", "264-2-misaligned"],
+)
+def test_cuda_kernel_matches_reference_on_card(n, f, edges, misalign):
     """On the card: the CUDA kernel equals the plain version bit for bit and
-    counts exactly one launch."""
+    counts exactly one launch; at n = 264 and 1032 with FD targets beside
+    every tile boundary (the diagonal crosses every tile), and with planes
+    off 16-byte alignment."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    ops = _torch_ops(random_tick_operands(n, f, seed=4), "cuda")
+    draw = tile_edge_tick_operands if edges else random_tick_operands
+    ops = _torch_ops(draw(n, f, seed=4), "cuda")
+    if misalign:
+        for k in ("rows", "view0", "age", "susp"):
+            ops[k] = _misaligned(ops[k])
     before = tc.tick_core.launches
     got = tc.tick_core(*ops.values(), **CONSTS)
     want = tc.tick_core_reference(*ops.values(), **CONSTS)
