@@ -322,7 +322,7 @@ def phase_kernel_vs_plain(torch):
     for n, s, seed in ((1024, 100, 3), (1024, 260, 4), (1024, 101, 5)):
         ops = {
             k: torch.from_numpy(v).cuda()
-            for k, v in tile_edge_operands(n, s, 3, seed=seed, tile=TILE_LANES).items()
+            for k, v in tile_edge_operands(n, s, 3, seed=seed).items()
         }
         args = tuple(ops.values())
         got = sparse_core(*args, **consts)
@@ -553,8 +553,7 @@ def phase_dense_kernel_vs_plain(torch):
     for n, seed in ((264, 3), (1032, 4)):
         ops = {
             k: torch.from_numpy(v).cuda()
-            for k, v in tile_edge_tick_operands(n, 3, seed=seed, tile=TILE_COLS,
-                                                susp_ticks=350).items()
+            for k, v in tile_edge_tick_operands(n, 3, seed=seed, susp_ticks=350).items()
         }
         got = tick_core(*ops.values(), **consts)
         want = tick_core_reference(*ops.values(), **consts)

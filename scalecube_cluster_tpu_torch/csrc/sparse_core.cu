@@ -40,8 +40,8 @@
 // different CTAs, each of which also reads f - 1 other blocks.
 //
 // Design:
-//   - The grid is (receiver rows, lane tile) with the rows fastest
-//     (blockIdx.x), so the card runs every row block of one tile at once,
+//   - The grid is (32-row receiver block, lane tile) with the blocks
+//     fastest (blockIdx.x), so the card runs every block of one tile at once,
 //     and a sender cell's f reads fall within the time L2 holds the band
 //     (slab, age)[:, tile] (N x 128 x 5 B = 21 MB at n=32768): slab and
 //     age come from device memory once. They are the band as well as the
@@ -59,12 +59,12 @@
 //     subjects is a row of the CTA). The rare spans that hold one, and dead
 //     receiver rows, take the general path.
 //   - Offsets are 32-bit: the wrapper refuses n*S >= 2^31.
-//   - The aggregate is OR-ed over the CTA's rows (blocks x 32 of them) in
-//     shared memory, then one atomicOr per lane word and CTA into the [S]
-//     vector the launcher zeroes on the stream; the self-rumor is an
-//     atomicMax into the [N] vector it fills with -1. Both are exact in any
-//     order. At the main path's shape one block a CTA (1,024 atomics per
-//     lane word) was as fast as four: the atomics are not what costs.
+//   - The aggregate is OR-ed over the CTA's 32 rows in shared memory, then
+//     one atomicOr per lane word and CTA goes into the [S] vector the
+//     launcher zeroes on the stream; the self-rumor is an atomicMax into
+//     the [N] vector it fills with -1. Both are exact in any order. CTAs
+//     of 2 or 4 row blocks, with a half or a quarter of the atomics, were
+//     no faster at the main path's shape: the atomics are not what costs.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,8 +76,6 @@ namespace {
 constexpr int kGroup = 32;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 128;
-constexpr int kMaxBlocks = 4;
-constexpr int kMaxRows = kGroup * kMaxBlocks;
 constexpr int kQ = swim::kQuad;
 constexpr int kMaxTile = kQ * kThreads;
 
@@ -199,11 +197,11 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const int32_t* __restrict__ fd_key, const int32_t* __restrict__ sy_key,
     int32_t* __restrict__ slab2, int8_t* __restrict__ age2, int16_t* __restrict__ susp2,
     int32_t* __restrict__ self_rumor, int32_t* __restrict__ aggr, int n, int s, int f,
-    int tile, int blocks, Consts k) {
+    int tile, Consts k) {
   const int fan = kF > 0 ? kF : f;
-  const int nb = n / kGroup;
-  const int row0 = blockIdx.x * blocks * kGroup;
-  const int nrows = min(blocks * kGroup, n - row0);
+  const int blk = blockIdx.x;
+  const int nb = gridDim.x;
+  const int row0 = blk * kGroup;
   const int cols = tile / kQ;  // threads along a row
   const int rstep = kThreads / cols;  // rows in flight in the CTA
   const int tx = threadIdx.x % cols;
@@ -212,21 +210,21 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
 
   // Per (receiver row, channel): the sender row, its FD and SYNC lanes, the
   // edge bit.
-  __shared__ int4 s_send[kMaxRows][kMaxFanout];
+  __shared__ int4 s_send[kGroup][kMaxFanout];
   // Per receiver row: its own FD and SYNC lanes, its liveness.
-  __shared__ int4 s_recv[kMaxRows];
+  __shared__ int4 s_recv[kGroup];
   __shared__ int s_aggr[kMaxTile];
 
-  for (int i = threadIdx.x; i < fan * nrows; i += kThreads) {
-    const int c = i / nrows;
-    const int row = row0 + i % nrows;
-    const int b = row / kGroup;
-    const int src =
-        (int)swim::window_row(kGroup, ginv[c * nb + b], rots[c * nb + b], row % kGroup);
-    s_send[row - row0][c] = make_int4(src, fd_slot[src], sy_slot[src], edge_ok[c * n + row]);
+  for (int i = threadIdx.x; i < fan * kGroup; i += kThreads) {
+    const int c = i / kGroup;
+    const int r = i % kGroup;
+    const int src = (int)swim::window_row(kGroup, ginv[c * nb + blk], rots[c * nb + blk], r);
+    s_send[r][c] = make_int4(src, fd_slot[src], sy_slot[src], edge_ok[c * n + row0 + r]);
   }
-  for (int r = threadIdx.x; r < nrows; r += kThreads)
-    s_recv[r] = make_int4(fd_slot[row0 + r], sy_slot[row0 + r], alive[row0 + r], 0);
+  if (threadIdx.x < kGroup) {
+    const int row = row0 + threadIdx.x;
+    s_recv[threadIdx.x] = make_int4(fd_slot[row], sy_slot[row], alive[row], 0);
+  }
   for (int t = threadIdx.x; t < tile; t += kThreads) s_aggr[t] = 0;
   __syncthreads();
 
@@ -240,13 +238,13 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     subj[q] = q < nv ? slot_subj[j0 + q] : -1;
     active[q] = subj[q] >= 0;
     any_active |= active[q];
-    own_rows |= active[q] && (unsigned)(subj[q] - row0) < (unsigned)nrows;
+    own_rows |= active[q] && (unsigned)(subj[q] - row0) < (unsigned)kGroup;
   }
   int bits[kQ] = {0, 0, 0, 0};
 
   const uint64_t keep = swim::evict_last_policy();
   if (nv > 0) {
-    for (int r = threadIdx.x / cols; r < nrows; r += rstep) {
+    for (int r = threadIdx.x / cols; r < kGroup; r += rstep) {
       const int row = row0 + r;
       int best_any[kQ], best_alive[kQ];
 #pragma unroll
@@ -349,32 +347,32 @@ void launch(dim3 grid, cudaStream_t stream, const void* slab, const void* age,
             const void* susp, const void* slot_subj, const void* ginv, const void* rots,
             const void* edge_ok, const void* alive, const void* fd_slot, const void* sy_slot,
             const void* fd_key, const void* sy_key, void* slab2, void* age2, void* susp2,
-            void* self_rumor, void* aggr, int n, int s, int f, int tile, int blocks, Consts k) {
+            void* self_rumor, void* aggr, int n, int s, int f, int tile, Consts k) {
   sparse_core_kernel<kF, kVec><<<grid, kThreads, 0, stream>>>(
       (const int32_t*)slab, (const int8_t*)age, (const int16_t*)susp,
       (const int32_t*)slot_subj, (const int32_t*)ginv, (const int32_t*)rots,
       (const uint8_t*)edge_ok, (const uint8_t*)alive, (const int32_t*)fd_slot,
       (const int32_t*)sy_slot, (const int32_t*)fd_key, (const int32_t*)sy_key,
       (int32_t*)slab2, (int8_t*)age2, (int16_t*)susp2, (int32_t*)self_rumor,
-      (int32_t*)aggr, n, s, f, tile, blocks, k);
+      (int32_t*)aggr, n, s, f, tile, k);
 }
 
 }  // namespace
 
 // Fills ``self_rumor`` with -1 and zeroes ``aggr`` on ``stream``, then
 // launches the kernel there. ``tile`` is the lanes of one CTA (a power of
-// two from 16 to 512), ``blocks`` the 32-row blocks it covers (1 to 4).
+// two from 16 to 512).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int sparse_core_launch(
     const void* slab, const void* age, const void* susp, const void* slot_subj,
     const void* ginv, const void* rots, const void* edge_ok, const void* alive,
     const void* fd_slot, const void* sy_slot, const void* fd_key,
     const void* sy_key, void* slab2, void* age2, void* susp2, void* self_rumor,
-    void* aggr, int n, int s, int f, int tile, int blocks, int spread, int susp_ticks,
+    void* aggr, int n, int s, int f, int tile, int spread, int susp_ticks,
     int age_stale, int sweep, void* stream) {
   if (n <= 0 || n % kGroup != 0 || s <= 0 || f > kMaxFanout || f < 1 ||
       (long long)n * s >= (1LL << 31) || tile < 16 || tile > kMaxTile ||
-      (tile & (tile - 1)) != 0 || blocks < 1 || blocks > kMaxBlocks)
+      (tile & (tile - 1)) != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(self_rumor, 0xff, sizeof(int32_t) * n, st);
@@ -382,12 +380,11 @@ extern "C" int sparse_core_launch(
   if (err != cudaSuccess) return (int)err;
   const bool vec = s % kQ == 0 && aligned(slab, 16) && aligned(slab2, 16) && aligned(age, 4) &&
                    aligned(age2, 4) && aligned(susp, 8) && aligned(susp2, 8);
-  const int nb = n / kGroup;
-  const dim3 grid((nb + blocks - 1) / blocks, (s + tile - 1) / tile);
+  const dim3 grid(n / kGroup, (s + tile - 1) / tile);
   const Consts k{spread, susp_ticks, age_stale, sweep};
 #define SPARSE_CORE_ARGS                                                                      \
   grid, st, slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, fd_slot, sy_slot, fd_key, \
-      sy_key, slab2, age2, susp2, self_rumor, aggr, n, s, f, tile, blocks, k
+      sy_key, slab2, age2, susp2, self_rumor, aggr, n, s, f, tile, k
   if (f == 3 && vec)
     launch<3, true>(SPARSE_CORE_ARGS);
   else if (vec)

@@ -106,36 +106,32 @@ def _tile_edges(width: int, tile: int) -> np.ndarray:
     return np.unique(np.concatenate([[0, width - 1], cuts - 1, cuts]))
 
 
-def tile_edge_tick_operands(n: int, f: int = 3, seed: int = 0, tile: int | None = None,
-                            susp_ticks: int = 20) -> dict:
+def tile_edge_tick_operands(n: int, f: int = 3, seed: int = 0, susp_ticks: int = 20) -> dict:
     """:func:`random_tick_operands` with half the rows' FD targets on the
-    columns beside a ``tile``-column boundary (and on column 0 and n - 1),
-    for holding the tiled dense kernel at its tile edges; the diagonal
-    crosses every tile by itself. ``tile`` defaults to the kernel's."""
-    tile = TILE_COLS if tile is None else tile
+    columns beside a boundary of the kernel's column tiles (``TILE_COLS``)
+    and on columns 0 and n - 1, for holding the tiled dense kernel at its
+    tile edges; the diagonal crosses every tile by itself."""
     ops = random_tick_operands(n, f, seed=seed, susp_ticks=susp_ticks)
     rng = np.random.default_rng(seed + 1)
-    edges = _tile_edges(n, tile)
+    edges = _tile_edges(n, TILE_COLS)
     hit = rng.random(n) < 0.5
     ops["fd_tgt"][hit] = rng.choice(edges, int(hit.sum())).astype(np.int32)
     return ops
 
 
-def tile_edge_operands(n: int, s: int, f: int = 3, seed: int = 0,
-                       tile: int | None = None) -> dict:
+def tile_edge_operands(n: int, s: int, f: int = 3, seed: int = 0) -> dict:
     """:func:`random_operands` with a third of the rows' FD and SYNC point
-    lanes beside a ``tile``-lane boundary (and on lanes 0 and S - 1), and
-    every lane of the second tile, where there is one, inactive (its slots
-    empty), for holding the tiled sparse kernel at its tile edges. ``tile``
-    defaults to the kernel's."""
-    tile = TILE_LANES if tile is None else tile
+    lanes beside a boundary of the kernel's lane tiles (``TILE_LANES``) and
+    on lanes 0 and S - 1, and every lane of the second tile, where there is
+    one, inactive (its slots empty), for holding the tiled sparse kernel at
+    its tile edges."""
     ops = random_operands(n, s, f, seed=seed)
     rng = np.random.default_rng(seed + 1)
-    edges = _tile_edges(s, tile)
+    edges = _tile_edges(s, TILE_LANES)
     for name in ("fd_slot", "sy_slot"):
         hit = rng.random(n) < 1 / 3
         ops[name][hit] = rng.choice(edges, int(hit.sum())).astype(np.int32)
-    ops["slot_subj"][tile : 2 * tile] = -1
+    ops["slot_subj"][TILE_LANES : 2 * TILE_LANES] = -1
     return ops
 
 

@@ -20,11 +20,11 @@ The gap between the two sizes the share of a kernel's time that sender
 re-reads from device memory cost. Each layout's kernel is checked equal
 to the plain version once, then timed with CUDA events (mean per wrapper
 call over ``REPS`` calls after one warm-up). ``--tiles`` repeats the
-random layout over the tile widths (and, for the sparse core, the row
-blocks per CTA) that the package's ``launch_geometry`` takes; a package
-without them is timed as it is. ``--sass OUT_DIR`` writes
+random layout over the tile widths the package's ``launch_geometry``
+takes; a package without them is timed as it is. ``--sass OUT_DIR`` writes
 ``cuobjdump -sass`` of both libraries there and prints, per kernel, its
-instruction count and each loop's span (a backward branch and its target).
+instruction count and each loop's span (a backward branch and its target)
+with its memory instructions by class.
 
 One JSON line per measurement, the card's name and power limit first.
 """
@@ -75,19 +75,14 @@ def _check_equal(torch, got, want, what):
             raise SystemExit(f"core_timing: {what}: output {i} differs from the plain version")
 
 
-def _variants(module, tiles, sparse):
-    """(label, attribute overrides) for each geometry to time."""
+def _variants(module, tiles, attr):
+    """(label, attribute overrides) for each tile width to time."""
     if not tiles or not hasattr(module, "launch_geometry"):
         return [("default", {})]
-    if not sparse:
-        return [(f"tile={t}", {"TILE_COLS": t}) for t in module.TILE_CHOICES]
-    return [
-        (f"tile={t},blocks={b}", {"TILE_LANES": t, "ROW_BLOCKS": b})
-        for t in (32, 64, 128) for b in (1, 2, 4)
-    ]
+    return [(f"tile={t}", {attr: t}) for t in module.TILE_CHOICES]
 
 
-def _time_core(torch, module, wrapper, reference, operands, consts, label, tiles, sparse):
+def _time_core(torch, module, wrapper, reference, operands, consts, label, tiles, attr):
     rows = []
     for layout in ("random", "neighbour"):
         ops = dict(operands)
@@ -96,7 +91,7 @@ def _time_core(torch, module, wrapper, reference, operands, consts, label, tiles
         args = tuple(torch.from_numpy(v).cuda() for v in ops.values())
         _check_equal(torch, wrapper(*args, **consts), reference(*args, **consts),
                      f"{label} {layout}")
-        variants = _variants(module, tiles, sparse) if layout == "random" else [("default", {})]
+        variants = _variants(module, tiles, attr) if layout == "random" else [("default", {})]
         for name, overrides in variants:
             saved = {k: getattr(module, k) for k in overrides}
             for k, v in overrides.items():
@@ -180,12 +175,12 @@ def main(argv=None) -> int:
     print(json.dumps({"card": card, "root": root, "torch": torch.__version__}), flush=True)
     dense_ops = random_tick_operands(DENSE["n"], DENSE["f"], seed=DENSE["seed"], susp_ticks=350)
     for row in _time_core(torch, tc, tc.tick_core, tc.tick_core_reference, dense_ops,
-                          DENSE_CONSTS, "tick_core n=10240", args.tiles, sparse=False):
+                          DENSE_CONSTS, "tick_core n=10240", args.tiles, "TILE_COLS"):
         print(json.dumps({**row, "root": root}), flush=True)
     del dense_ops
     sparse_ops = random_operands(SPARSE["n"], SPARSE["s"], SPARSE["f"], seed=SPARSE["seed"])
     for row in _time_core(torch, sc, sc.sparse_core, sc.sparse_core_reference, sparse_ops,
-                          SPARSE_CONSTS, "sparse_core n=32768 S=512", args.tiles, sparse=True):
+                          SPARSE_CONSTS, "sparse_core n=32768 S=512", args.tiles, "TILE_LANES"):
         print(json.dumps({**row, "root": root}), flush=True)
     if args.sass:
         for row in dump_sass([tc.LIBRARY, sc.LIBRARY], args.sass):

@@ -91,35 +91,33 @@ def test_wrapper_rejects_unsupported_geometry():
 
 
 @pytest.mark.parametrize(
-    "n,s,tile,blocks,want",
+    "n,s,tile,want",
     [
-        (64, 96, None, None, (2, 1, 128, 1)),
-        (1024, 100, None, None, (32, 1, 128, 1)),
-        (1024, 260, 32, 2, (16, 9, 32, 2)),
-        (32768, 512, None, None, (1024, 4, 128, 1)),
-        (32768, 512, 64, 4, (256, 8, 64, 4)),
-        (524288, 4095, None, None, (16384, 32, 128, 1)),
+        (64, 96, None, (2, 1, 128)),
+        (1024, 100, None, (32, 1, 128)),
+        (1024, 260, 32, (32, 9, 32)),
+        (32768, 512, None, (1024, 4, 128)),
+        (32768, 512, 64, (1024, 8, 64)),
+        (524288, 4095, None, (16384, 32, 128)),
     ],
 )
-def test_launch_geometry(n, s, tile, blocks, want):
-    """The grid is (CTAs of ``blocks`` 32-row blocks, lane tiles), the last
-    of each ragged; the defaults are TILE_LANES and ROW_BLOCKS."""
-    assert sc.launch_geometry(n, s, tile, blocks) == want
+def test_launch_geometry(n, s, tile, want):
+    """The grid is (32-row blocks, lane tiles), the last tile ragged when
+    the tile does not divide S; the default tile is TILE_LANES."""
+    assert sc.launch_geometry(n, s, tile) == want
 
 
 @pytest.mark.parametrize(
-    "n,s,tile,blocks,match",
-    [(524320, 4096, None, None, "32-bit"), (1024, 512, 48, None, "tile"),
-     (1024, 512, 1024, None, "tile"), (1024, 512, None, 5, "row blocks"),
-     (1024, 512, None, 0, "row blocks")],
-    ids=["n*S-past-2**31", "tile-48", "tile-1024", "blocks-5", "blocks-0"],
+    "n,s,tile,match",
+    [(524320, 4096, None, "32-bit"), (1024, 512, 48, "tile"), (1024, 512, 8, "tile"),
+     (1024, 512, 96, "tile"), (1024, 512, 1024, "tile")],
+    ids=["n*S-past-2**31", "tile-48", "tile-8", "tile-96", "tile-1024"],
 )
-def test_launch_geometry_refuses(n, s, tile, blocks, match):
-    """Past the kernel's 32-bit offsets (n*S >= 2**31), tiles that are not a
-    power of two from 16 to 512 lanes, and more than MAX_ROW_BLOCKS row
-    blocks a CTA, raise."""
+def test_launch_geometry_refuses(n, s, tile, match):
+    """Past the kernel's 32-bit offsets (n*S >= 2**31), and tiles that are
+    not a power of two from 16 to 512 lanes, raise."""
     with pytest.raises(ValueError, match=match):
-        sc.launch_geometry(n, s, tile, blocks)
+        sc.launch_geometry(n, s, tile)
 
 
 def test_tile_edge_operands_reach_the_edges():
