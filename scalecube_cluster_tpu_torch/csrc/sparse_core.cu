@@ -43,8 +43,9 @@
 //   - The grid is (32-row receiver block, lane tile) with the blocks
 //     fastest (blockIdx.x), so the card runs every block of one tile at once,
 //     and a sender cell's f reads fall within the time L2 holds the band
-//     (slab, age)[:, tile] (N x 128 x 5 B = 21 MB at n=32768): slab and
-//     age come from device memory once. They are the band as well as the
+//     (slab, age)[:, tile] (N x 128 x 5 B = 21 MB at n=32768): by design
+//     slab and age come from device memory once (not counted on the card;
+//     a neighbouring-CTA layout is 3.4% faster). They are the band and the
 //     receiver's own cells, so both reads go under an L2 evict-last
 //     policy; susp and the three outputs stream evict-first (ld/st .cs).
 //   - Each thread owns 4 consecutive lanes: slab moves as 16-byte
@@ -76,8 +77,16 @@ namespace {
 constexpr int kGroup = 32;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 128;
+// CTAs an SM must hold: caps the kernel at 64 registers. Left to itself,
+// nvcc gives the f=3 instantiation 80, six CTAs an SM, 10% slower on the
+// H100 (PERF.md).
+constexpr int kMinBlocks = 8;
 constexpr int kQ = swim::kQuad;
-constexpr int kMaxTile = kQ * kThreads;
+// Lanes of one CTA's tile: the fastest of 16 to 512 on the H100 (PERF.md).
+constexpr int kTile = 128;
+constexpr int kCols = kTile / kQ;        // threads along a row
+constexpr int kRowStep = kThreads / kCols;  // rows in flight in the CTA
+static_assert(kThreads % kCols == 0, "whole rows in flight");
 
 struct Consts {
   int spread;
@@ -188,7 +197,7 @@ __device__ __forceinline__ int cell_update(int local, int a0, int s0, int best_a
 // kF > 0: exactly kF channels, their window loads issued together; kF == 0:
 // f channels, one at a time. kVec: S % 4 == 0 and aligned planes.
 template <int kF, bool kVec>
-__global__ void __launch_bounds__(kThreads) sparse_core_kernel(
+__global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
     const int32_t* __restrict__ slab, const int8_t* __restrict__ age,
     const int16_t* __restrict__ susp, const int32_t* __restrict__ slot_subj,
     const int32_t* __restrict__ ginv, const int32_t* __restrict__ rots,
@@ -197,15 +206,13 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const int32_t* __restrict__ fd_key, const int32_t* __restrict__ sy_key,
     int32_t* __restrict__ slab2, int8_t* __restrict__ age2, int16_t* __restrict__ susp2,
     int32_t* __restrict__ self_rumor, int32_t* __restrict__ aggr, int n, int s, int f,
-    int tile, Consts k) {
+    Consts k) {
   const int fan = kF > 0 ? kF : f;
   const int blk = blockIdx.x;
   const int nb = gridDim.x;
   const int row0 = blk * kGroup;
-  const int cols = tile / kQ;  // threads along a row
-  const int rstep = kThreads / cols;  // rows in flight in the CTA
-  const int tx = threadIdx.x % cols;
-  const int j0 = blockIdx.y * tile + kQ * tx;
+  const int tx = threadIdx.x % kCols;
+  const int j0 = blockIdx.y * kTile + kQ * tx;
   const int nv = min(max(s - j0, 0), kQ);  // the span's lanes inside the slab
 
   // Per (receiver row, channel): the sender row, its FD and SYNC lanes, the
@@ -213,7 +220,7 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
   __shared__ int4 s_send[kGroup][kMaxFanout];
   // Per receiver row: its own FD and SYNC lanes, its liveness.
   __shared__ int4 s_recv[kGroup];
-  __shared__ int s_aggr[kMaxTile];
+  __shared__ int s_aggr[kTile];
 
   for (int i = threadIdx.x; i < fan * kGroup; i += kThreads) {
     const int c = i / kGroup;
@@ -225,7 +232,7 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
     const int row = row0 + threadIdx.x;
     s_recv[threadIdx.x] = make_int4(fd_slot[row], sy_slot[row], alive[row], 0);
   }
-  for (int t = threadIdx.x; t < tile; t += kThreads) s_aggr[t] = 0;
+  for (int t = threadIdx.x; t < kTile; t += kThreads) s_aggr[t] = 0;
   __syncthreads();
 
   // Lane facts, fixed across rows.
@@ -244,7 +251,7 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
 
   const uint64_t keep = swim::evict_last_policy();
   if (nv > 0) {
-    for (int r = threadIdx.x / cols; r < kGroup; r += rstep) {
+    for (int r = threadIdx.x / kCols; r < kGroup; r += kRowStep) {
       const int row = row0 + r;
       int best_any[kQ], best_alive[kQ];
 #pragma unroll
@@ -334,8 +341,8 @@ __global__ void __launch_bounds__(kThreads) sparse_core_kernel(
   for (int q = 0; q < kQ; ++q)
     if (q < nv && bits[q]) atomicOr(&s_aggr[kQ * tx + q], bits[q]);
   __syncthreads();
-  for (int t = threadIdx.x; t < tile; t += kThreads) {
-    const int lane = blockIdx.y * tile + t;
+  for (int t = threadIdx.x; t < kTile; t += kThreads) {
+    const int lane = blockIdx.y * kTile + t;
     if (lane < s && s_aggr[t]) atomicOr(&aggr[lane], s_aggr[t]);
   }
 }
@@ -347,32 +354,30 @@ void launch(dim3 grid, cudaStream_t stream, const void* slab, const void* age,
             const void* susp, const void* slot_subj, const void* ginv, const void* rots,
             const void* edge_ok, const void* alive, const void* fd_slot, const void* sy_slot,
             const void* fd_key, const void* sy_key, void* slab2, void* age2, void* susp2,
-            void* self_rumor, void* aggr, int n, int s, int f, int tile, Consts k) {
+            void* self_rumor, void* aggr, int n, int s, int f, Consts k) {
   sparse_core_kernel<kF, kVec><<<grid, kThreads, 0, stream>>>(
       (const int32_t*)slab, (const int8_t*)age, (const int16_t*)susp,
       (const int32_t*)slot_subj, (const int32_t*)ginv, (const int32_t*)rots,
       (const uint8_t*)edge_ok, (const uint8_t*)alive, (const int32_t*)fd_slot,
       (const int32_t*)sy_slot, (const int32_t*)fd_key, (const int32_t*)sy_key,
       (int32_t*)slab2, (int8_t*)age2, (int16_t*)susp2, (int32_t*)self_rumor,
-      (int32_t*)aggr, n, s, f, tile, k);
+      (int32_t*)aggr, n, s, f, k);
 }
 
 }  // namespace
 
 // Fills ``self_rumor`` with -1 and zeroes ``aggr`` on ``stream``, then
-// launches the kernel there. ``tile`` is the lanes of one CTA (a power of
-// two from 16 to 512).
+// launches the kernel there on an (n/32 row blocks, lane tiles) grid.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int sparse_core_launch(
     const void* slab, const void* age, const void* susp, const void* slot_subj,
     const void* ginv, const void* rots, const void* edge_ok, const void* alive,
     const void* fd_slot, const void* sy_slot, const void* fd_key,
     const void* sy_key, void* slab2, void* age2, void* susp2, void* self_rumor,
-    void* aggr, int n, int s, int f, int tile, int spread, int susp_ticks,
+    void* aggr, int n, int s, int f, int spread, int susp_ticks,
     int age_stale, int sweep, void* stream) {
   if (n <= 0 || n % kGroup != 0 || s <= 0 || f > kMaxFanout || f < 1 ||
-      (long long)n * s >= (1LL << 31) || tile < 16 || tile > kMaxTile ||
-      (tile & (tile - 1)) != 0)
+      (long long)n * s >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(self_rumor, 0xff, sizeof(int32_t) * n, st);
@@ -380,11 +385,11 @@ extern "C" int sparse_core_launch(
   if (err != cudaSuccess) return (int)err;
   const bool vec = s % kQ == 0 && aligned(slab, 16) && aligned(slab2, 16) && aligned(age, 4) &&
                    aligned(age2, 4) && aligned(susp, 8) && aligned(susp2, 8);
-  const dim3 grid(n / kGroup, (s + tile - 1) / tile);
+  const dim3 grid(n / kGroup, (s + kTile - 1) / kTile);
   const Consts k{spread, susp_ticks, age_stale, sweep};
 #define SPARSE_CORE_ARGS                                                                      \
   grid, st, slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, fd_slot, sy_slot, fd_key, \
-      sy_key, slab2, age2, susp2, self_rumor, aggr, n, s, f, tile, k
+      sy_key, slab2, age2, susp2, self_rumor, aggr, n, s, f, k
   if (f == 3 && vec)
     launch<3, true>(SPARSE_CORE_ARGS);
   else if (vec)

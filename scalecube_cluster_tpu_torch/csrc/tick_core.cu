@@ -41,8 +41,10 @@
 //   - The grid is (receiver group, column tile) with the group fastest
 //     (blockIdx.x), so the card runs every group of one tile, and part of
 //     the next, at once. A sender cell's f reads then fall within the time
-//     L2 holds rows[:, tile] (N x 256 x 4 B = 10.5 MB at n=10240): rows
-//     comes from device memory once, and the L2 serves the f - 1 re-reads.
+//     L2 holds rows[:, tile] (N x 256 x 4 B = 10.5 MB at n=10240): by
+//     design rows comes from device memory once and the L2 serves the
+//     f - 1 re-reads (no DRAM byte count exists on the card's machine; a
+//     layout whose f readers are neighbouring CTAs is 1.4% faster).
 //   - Sender rows are read under an L2 evict-last policy; view0, age, susp
 //     and the four outputs are single-use and stream evict-first (ld/st
 //     .cs), so their ~18 B per cell do not push the band out.
@@ -75,6 +77,12 @@ constexpr int kGroup = 8;
 constexpr int kMaxFanout = 8;
 constexpr int kThreads = 128;
 constexpr int kQ = swim::kQuad;
+// Columns of one CTA's tile: the fastest of 128, 256 and 512 on the H100
+// (PERF.md).
+constexpr int kTile = 256;
+constexpr int kCols = kTile / kQ;        // threads along a row
+constexpr int kRowStep = kThreads / kCols;  // rows in flight in the CTA
+static_assert(kCols % 32 == 0 && kThreads % kCols == 0, "a warp holds one row");
 
 struct Consts {
   int spread;
@@ -187,13 +195,11 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
     const int32_t* __restrict__ fd_tgt, const int32_t* __restrict__ fd_key,
     int32_t* __restrict__ view2, int8_t* __restrict__ age2, int16_t* __restrict__ susp2,
     int32_t* __restrict__ rows_next, int32_t* __restrict__ self_rumor,
-    int32_t* __restrict__ known_cnt, int n, int f, int tile, Consts k) {
+    int32_t* __restrict__ known_cnt, int n, int f, Consts k) {
   const int fan = kF > 0 ? kF : f;
   const int grp = blockIdx.x;
   const int ng = gridDim.x;
-  const int cols = tile / kQ;  // threads along a row: a multiple of 32
-  const int rstep = kThreads / cols;  // rows in flight in the CTA
-  const int j0 = blockIdx.y * tile + kQ * (threadIdx.x % cols);
+  const int j0 = blockIdx.y * kTile + kQ * (threadIdx.x % kCols);
   const bool in_range = j0 < n;  // n % 8 == 0: a span is all in or all out
 
   // Per (receiver row, channel): the sender row's offset, its FD column
@@ -217,7 +223,7 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
   __syncthreads();
 
   const uint64_t keep = swim::evict_last_policy();
-  for (int r = threadIdx.x / cols; r < kGroup; r += rstep) {
+  for (int r = threadIdx.x / kCols; r < kGroup; r += kRowStep) {
     const int row = grp * kGroup + r;
     int known = 0;
     if (in_range) {
@@ -277,7 +283,7 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
       }
       store_cells<kVec>(view2, age2, susp2, rows_next, off, out, a2, s2, next);
     }
-    // A warp holds one row (cols is a multiple of 32).
+    // A warp holds one row.
     known = __reduce_add_sync(0xffffffffu, known);
     if (threadIdx.x % 32 == 0 && known) atomicAdd(&s_known[r], known);
   }
@@ -293,29 +299,29 @@ void launch(dim3 grid, cudaStream_t stream, const void* rows, const void* view0,
             const void* age, const void* susp, const void* ginv, const void* rots,
             const void* edge_ok, const void* alive, const void* fd_tgt, const void* fd_key,
             void* view2, void* age2, void* susp2, void* rows_next, void* self_rumor,
-            void* known_cnt, int n, int f, int tile, Consts k) {
+            void* known_cnt, int n, int f, Consts k) {
   tick_core_kernel<kF, kVec><<<grid, kThreads, 0, stream>>>(
       (const int32_t*)rows, (const int32_t*)view0, (const int8_t*)age, (const int16_t*)susp,
       (const int32_t*)ginv, (const int32_t*)rots, (const uint8_t*)edge_ok,
       (const uint8_t*)alive, (const int32_t*)fd_tgt, (const int32_t*)fd_key,
       (int32_t*)view2, (int8_t*)age2, (int16_t*)susp2, (int32_t*)rows_next,
-      (int32_t*)self_rumor, (int32_t*)known_cnt, n, f, tile, k);
+      (int32_t*)self_rumor, (int32_t*)known_cnt, n, f, k);
 }
 
 }  // namespace
 
 // Zeroes known_cnt and launches the kernel on ``stream``; every output is
-// written in full. ``tile`` is the columns of one CTA (128, 256 or 512).
+// written in full. The grid is (n/8 receiver groups, column tiles).
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int tick_core_launch(
     const void* rows, const void* view0, const void* age, const void* susp,
     const void* ginv, const void* rots, const void* edge_ok, const void* alive,
     const void* fd_tgt, const void* fd_key, void* view2, void* age2,
     void* susp2, void* rows_next, void* self_rumor, void* known_cnt, int n,
-    int f, int tile, int spread, int sweep, int susp_ticks, int age_stale,
+    int f, int spread, int sweep, int susp_ticks, int age_stale,
     void* stream) {
   if (n <= 0 || n % kGroup != 0 || f > kMaxFanout || f < 1 ||
-      (long long)n * n >= (1LL << 31) || (tile != 128 && tile != 256 && tile != 512))
+      (long long)n * n >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(known_cnt, 0, sizeof(int32_t) * n, s);
@@ -323,11 +329,11 @@ extern "C" int tick_core_launch(
   const bool vec = aligned(rows, 16) && aligned(view0, 16) && aligned(view2, 16) &&
                    aligned(rows_next, 16) && aligned(age, 4) && aligned(age2, 4) &&
                    aligned(susp, 8) && aligned(susp2, 8);
-  const dim3 grid(n / kGroup, (n + tile - 1) / tile);
+  const dim3 grid(n / kGroup, (n + kTile - 1) / kTile);
   const Consts k{spread, sweep, susp_ticks, age_stale};
 #define TICK_CORE_ARGS                                                                    \
   grid, s, rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, fd_key, view2, age2, \
-      susp2, rows_next, self_rumor, known_cnt, n, f, tile, k
+      susp2, rows_next, self_rumor, known_cnt, n, f, k
   if (f == 3 && vec)
     launch<3, true>(TICK_CORE_ARGS);
   else if (vec)

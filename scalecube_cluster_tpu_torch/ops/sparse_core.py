@@ -45,15 +45,12 @@ SLOT_BITS = 12
 #: Channels the kernel's per-CTA shared-memory tables hold (``kMaxFanout``
 #: in csrc/sparse_core.cu).
 MAX_FANOUT = 8
-#: Lanes of one CTA's tile. The grid is (32-row blocks, lane tiles) with
-#: the blocks fastest, so the band ``(slab, age)[:, tile]`` (n x TILE_LANES
-#: x 5 B, 21 MB at n=32768) stays in L2 across the f reads of each sender
-#: cell. The fastest width on the H100 (PERF.md, ``tools/core_timing.py
-#: --tiles``).
+#: Lanes of one CTA's tile (``kTile`` in csrc/sparse_core.cu, which owns
+#: the grid: n/32 row blocks by lane tiles, the blocks fastest, so the band
+#: ``(slab, age)[:, tile]``, 21 MB at n=32768, stays in L2 across the f
+#: reads of each sender cell). The tile-edge test operands sit on its
+#: boundaries.
 TILE_LANES = 128
-#: Tile widths the kernel takes: 128 threads of 4 lanes, or fewer lanes
-#: and more rows at once.
-TILE_CHOICES = (16, 32, 64, 128, 256, 512)
 #: The kernel's offsets are 32-bit: n * S must stay below this.
 MAX_CELLS = 1 << 31
 #: Bits of the per-slot aggregate output.
@@ -144,17 +141,11 @@ def sparse_core_reference(
     )
 
 
-def launch_geometry(n: int, s: int, tile: int | None = None) -> tuple[int, int, int]:
-    """The kernel's grid for n rows and S lanes: ``(32-row blocks, lane
-    tiles, tile width)``, the last tile ragged when ``tile`` does not
-    divide S. Raises ``ValueError`` for a tile the kernel does not take and
-    for n * S >= 2**31 (past its 32-bit offsets)."""
-    tile = TILE_LANES if tile is None else tile
-    if tile not in TILE_CHOICES:
-        raise ValueError(f"tile {tile} is not one of {TILE_CHOICES}")
+def check_offsets(n: int, s: int) -> None:
+    """Raise ``ValueError`` for n * S >= 2**31, past the kernel's 32-bit
+    offsets."""
     if n * s >= MAX_CELLS:
         raise ValueError(f"n*S = {n}*{s} >= 2**31 exceeds the kernel's 32-bit offsets")
-    return n // SPARSE_GROUP, -(-s // tile), tile
 
 
 def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
@@ -193,7 +184,7 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [
+    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     lib.sparse_core_launch.restype = ctypes.c_int
@@ -216,7 +207,7 @@ def sparse_core(
     ``sparse_core.launches``; a missing kernel or a refused launch raises.
     Raises ``ValueError`` on a wrong dtype, shape, device or contiguity,
     on n % 32 != 0, on S >= 4096 and, for CUDA tensors, on n * S >= 2**31
-    (:func:`launch_geometry`).
+    (:func:`check_offsets`).
     """
     args = (slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
             fd_slot, sy_slot, fd_key, sy_key)
@@ -228,7 +219,7 @@ def sparse_core(
     if slab.device.type != "cuda":
         raise ValueError(f"sparse_core: unsupported device {slab.device}")
     n, s = slab.shape
-    _, _, tile = launch_geometry(n, s)
+    check_offsets(n, s)
     lib = LIBRARY.load()
     slab2 = torch.empty_like(slab)
     age2 = torch.empty_like(age)
@@ -241,7 +232,7 @@ def sparse_core(
         *(t.data_ptr() for t in args),
         slab2.data_ptr(), age2.data_ptr(), susp2.data_ptr(),
         self_rumor.data_ptr(), aggr.data_ptr(),
-        n, s, ginv.shape[0], tile, spread, susp_ticks, age_stale, sweep, stream,
+        n, s, ginv.shape[0], spread, susp_ticks, age_stale, sweep, stream,
     )
     if err != 0:
         msg = lib.sparse_core_error_string(err).decode()

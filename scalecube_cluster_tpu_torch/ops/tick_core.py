@@ -31,30 +31,20 @@ from scalecube_cluster_tpu_torch.ops.merge import DEAD_BIT, is_alive_key, merge_
 #: Channels the kernel's per-CTA shared-memory tables hold (``kMaxFanout``
 #: in csrc/tick_core.cu).
 MAX_FANOUT = 8
-#: Columns of one CTA's tile. The grid is (n/8 receiver groups, column
-#: tiles) with the groups fastest, so ``rows[:, tile]`` (n x TILE_COLS x 4 B,
-#: 10.5 MB at n=10240) stays in L2 across the f reads of each sender cell.
-#: The fastest of the widths below on the H100 (PERF.md,
-#: ``tools/core_timing.py --tiles``).
+#: Columns of one CTA's tile (``kTile`` in csrc/tick_core.cu, which owns
+#: the grid: n/8 receiver groups by column tiles, the groups fastest, so
+#: ``rows[:, tile]``, 10.5 MB at n=10240, stays in L2 across the f reads of
+#: each sender cell). The tile-edge test operands sit on its boundaries.
 TILE_COLS = 256
-#: Tile widths the kernel takes: a multiple of 32 threads of 4 columns
-#: along a row, at most its 128 threads.
-TILE_CHOICES = (128, 256, 512)
 #: The kernel's offsets are 32-bit: n * n must stay below this.
 MAX_CELLS = 1 << 31
 
 
-def launch_geometry(n: int, tile: int | None = None) -> tuple[int, int, int]:
-    """The kernel's grid for n members: ``(receiver groups, column tiles,
-    tile width)``, the last tile ragged when ``tile`` does not divide n.
-    Raises ``ValueError`` for a tile the kernel does not take and for
-    n * n >= 2**31 (past its 32-bit offsets)."""
-    tile = TILE_COLS if tile is None else tile
-    if tile not in TILE_CHOICES:
-        raise ValueError(f"tile {tile} is not one of {TILE_CHOICES}")
+def check_offsets(n: int) -> None:
+    """Raise ``ValueError`` for n * n >= 2**31, past the kernel's 32-bit
+    offsets."""
     if n * n >= MAX_CELLS:
         raise ValueError(f"n={n}: n*n >= 2**31 exceeds the kernel's 32-bit offsets")
-    return n // GROUP, -(-n // tile), tile
 
 
 def tick_core_reference(
@@ -162,7 +152,7 @@ def _check_operands(rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, 
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.tick_core_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
+    lib.tick_core_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p
     ]
     lib.tick_core_launch.restype = ctypes.c_int
@@ -186,7 +176,7 @@ def tick_core(
     ``tick_core.launches``; a missing kernel or a refused launch raises.
     Raises ``ValueError`` on a wrong dtype, shape, device or contiguity,
     on n % 8 != 0, on more than :data:`MAX_FANOUT` channels and, for CUDA
-    tensors, on n * n >= 2**31 (:func:`launch_geometry`). Index
+    tensors, on n * n >= 2**31 (:func:`check_offsets`). Index
     operands must be in range, as the fan-out draw and the FD round make
     them (``fd_tgt`` in [-1, n), ``ginv`` a group permutation)."""
     args = (rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, fd_key)
@@ -197,7 +187,7 @@ def tick_core(
     if view0.device.type != "cuda":
         raise ValueError(f"tick_core: unsupported device {view0.device}")
     n = view0.shape[0]
-    _, _, tile = launch_geometry(n)
+    check_offsets(n)
     lib = LIBRARY.load()
     view2 = torch.empty_like(view0)
     age2 = torch.empty_like(age)
@@ -211,7 +201,7 @@ def tick_core(
         *(t.data_ptr() for t in args),
         view2.data_ptr(), age2.data_ptr(), susp2.data_ptr(), rows_next.data_ptr(),
         self_rumor.data_ptr(), known_cnt.data_ptr(),
-        n, ginv.shape[0], tile, spread, sweep, susp_ticks, age_stale, stream,
+        n, ginv.shape[0], spread, sweep, susp_ticks, age_stale, stream,
     )
     if err != 0:
         msg = lib.tick_core_error_string(err).decode()

@@ -1,11 +1,11 @@
 """Time the two fused cores (``tick_core``, ``sparse_core``) at the main
-paths' shapes, by fan-out layout and tile, and count their SASS.
+paths' shapes, by fan-out layout, and count their SASS.
 
 Run on a CUDA card, as a file so that ``--root`` can pick the checkout
 whose package is timed (another tree's, for a same-call A/B):
 
     python scalecube_cluster_tpu_torch/tools/core_timing.py [--root DIR]
-        [--tiles] [--sass OUT_DIR]
+        [--sass OUT_DIR]
 
 For each core it draws ``testing.py``'s seeded operands (dense n=10240,
 f=3, seed 1; sparse n=32768, S=512, f=3, seed 1: the operands of
@@ -19,9 +19,7 @@ f=3, seed 1; sparse n=32768, S=512, f=3, seed 1: the operands of
 The gap between the two sizes the share of a kernel's time that sender
 re-reads from device memory cost. Each layout's kernel is checked equal
 to the plain version once, then timed with CUDA events (mean per wrapper
-call over ``REPS`` calls after one warm-up). ``--tiles`` repeats the
-random layout over the tile widths the package's ``launch_geometry``
-takes; a package without them is timed as it is. ``--sass OUT_DIR`` writes
+call over ``REPS`` calls after one warm-up). ``--sass OUT_DIR`` writes
 ``cuobjdump -sass`` of both libraries there and prints, per kernel, its
 instruction count and each loop's span (a backward branch and its target)
 with its memory instructions by class.
@@ -75,14 +73,7 @@ def _check_equal(torch, got, want, what):
             raise SystemExit(f"core_timing: {what}: output {i} differs from the plain version")
 
 
-def _variants(module, tiles, attr):
-    """(label, attribute overrides) for each tile width to time."""
-    if not tiles or not hasattr(module, "launch_geometry"):
-        return [("default", {})]
-    return [(f"tile={t}", {attr: t}) for t in module.TILE_CHOICES]
-
-
-def _time_core(torch, module, wrapper, reference, operands, consts, label, tiles, attr):
+def _time_core(torch, wrapper, reference, operands, consts, label):
     rows = []
     for layout in ("random", "neighbour"):
         ops = dict(operands)
@@ -91,20 +82,8 @@ def _time_core(torch, module, wrapper, reference, operands, consts, label, tiles
         args = tuple(torch.from_numpy(v).cuda() for v in ops.values())
         _check_equal(torch, wrapper(*args, **consts), reference(*args, **consts),
                      f"{label} {layout}")
-        variants = _variants(module, tiles, attr) if layout == "random" else [("default", {})]
-        for name, overrides in variants:
-            saved = {k: getattr(module, k) for k in overrides}
-            for k, v in overrides.items():
-                setattr(module, k, v)
-            try:
-                if overrides:
-                    _check_equal(torch, wrapper(*args, **consts), reference(*args, **consts),
-                                 f"{label} {name}")
-                ms = time_cuda(torch, lambda: wrapper(*args, **consts))
-            finally:
-                for k, v in saved.items():
-                    setattr(module, k, v)
-            rows.append({"kernel": label, "layout": layout, "geometry": name, "ms": ms})
+        ms = time_cuda(torch, lambda: wrapper(*args, **consts))
+        rows.append({"kernel": label, "layout": layout, "ms": ms})
         del args
         torch.cuda.empty_cache()
     return rows
@@ -155,7 +134,6 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="core_timing.py")
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
                     help="checkout whose scalecube_cluster_tpu_torch is timed")
-    ap.add_argument("--tiles", action="store_true", help="sweep the tile geometries")
     ap.add_argument("--sass", type=Path, help="write cuobjdump -sass here and count it")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(args.root.resolve()))
@@ -174,13 +152,13 @@ def main(argv=None) -> int:
     root = str(args.root.resolve())
     print(json.dumps({"card": card, "root": root, "torch": torch.__version__}), flush=True)
     dense_ops = random_tick_operands(DENSE["n"], DENSE["f"], seed=DENSE["seed"], susp_ticks=350)
-    for row in _time_core(torch, tc, tc.tick_core, tc.tick_core_reference, dense_ops,
-                          DENSE_CONSTS, "tick_core n=10240", args.tiles, "TILE_COLS"):
+    for row in _time_core(torch, tc.tick_core, tc.tick_core_reference, dense_ops,
+                          DENSE_CONSTS, "tick_core n=10240"):
         print(json.dumps({**row, "root": root}), flush=True)
     del dense_ops
     sparse_ops = random_operands(SPARSE["n"], SPARSE["s"], SPARSE["f"], seed=SPARSE["seed"])
-    for row in _time_core(torch, sc, sc.sparse_core, sc.sparse_core_reference, sparse_ops,
-                          SPARSE_CONSTS, "sparse_core n=32768 S=512", args.tiles, "TILE_LANES"):
+    for row in _time_core(torch, sc.sparse_core, sc.sparse_core_reference, sparse_ops,
+                          SPARSE_CONSTS, "sparse_core n=32768 S=512"):
         print(json.dumps({**row, "root": root}), flush=True)
     if args.sass:
         for row in dump_sass([tc.LIBRARY, sc.LIBRARY], args.sass):

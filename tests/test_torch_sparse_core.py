@@ -91,33 +91,18 @@ def test_wrapper_rejects_unsupported_geometry():
 
 
 @pytest.mark.parametrize(
-    "n,s,tile,want",
-    [
-        (64, 96, None, (2, 1, 128)),
-        (1024, 100, None, (32, 1, 128)),
-        (1024, 260, 32, (32, 9, 32)),
-        (32768, 512, None, (1024, 4, 128)),
-        (32768, 512, 64, (1024, 8, 64)),
-        (524288, 4095, None, (16384, 32, 128)),
-    ],
+    "n,s,refused",
+    [(32768, 512, False), (524256, 4096, False), (524288, 4096, True)],
+    ids=["main-path", "last-n-below-2**31", "n*S-at-2**31"],
 )
-def test_launch_geometry(n, s, tile, want):
-    """The grid is (32-row blocks, lane tiles), the last tile ragged when
-    the tile does not divide S; the default tile is TILE_LANES."""
-    assert sc.launch_geometry(n, s, tile) == want
-
-
-@pytest.mark.parametrize(
-    "n,s,tile,match",
-    [(524320, 4096, None, "32-bit"), (1024, 512, 48, "tile"), (1024, 512, 8, "tile"),
-     (1024, 512, 96, "tile"), (1024, 512, 1024, "tile")],
-    ids=["n*S-past-2**31", "tile-48", "tile-8", "tile-96", "tile-1024"],
-)
-def test_launch_geometry_refuses(n, s, tile, match):
-    """Past the kernel's 32-bit offsets (n*S >= 2**31), and tiles that are
-    not a power of two from 16 to 512 lanes, raise."""
-    with pytest.raises(ValueError, match=match):
-        sc.launch_geometry(n, s, tile)
+def test_offset_limit(n, s, refused):
+    """The kernel's offsets are 32-bit: n*S >= 2**31 raises, the largest n
+    below it (a multiple of 32) does not."""
+    if refused:
+        with pytest.raises(ValueError, match="32-bit"):
+            sc.check_offsets(n, s)
+    else:
+        sc.check_offsets(n, s)
 
 
 def test_tile_edge_operands_reach_the_edges():

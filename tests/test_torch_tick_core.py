@@ -100,32 +100,18 @@ def test_wrapper_rejects_unsupported_geometry():
 
 
 @pytest.mark.parametrize(
-    "n,tile,want",
-    [
-        (64, None, (8, 1, 256)),
-        (264, None, (33, 2, 256)),
-        (1032, 128, (129, 9, 128)),
-        (10240, None, (1280, 40, 256)),
-        (10240, 512, (1280, 20, 512)),
-        (46336, None, (5792, 181, 256)),
-    ],
+    "n,refused",
+    [(10240, False), (46336, False), (46344, True)],
+    ids=["main-path", "last-n-below-2**31", "n*n-past-2**31"],
 )
-def test_launch_geometry(n, tile, want):
-    """The grid is (n/8 receiver groups, column tiles), the last tile ragged
-    when the tile does not divide n; the default tile is TILE_COLS."""
-    assert tc.launch_geometry(n, tile) == want
-
-
-@pytest.mark.parametrize(
-    "n,tile,match",
-    [(46344, None, "32-bit"), (10240, 64, "tile"), (10240, 384, "tile"), (10240, 1024, "tile")],
-    ids=["n*n-past-2**31", "tile-64", "tile-384", "tile-1024"],
-)
-def test_launch_geometry_refuses(n, tile, match):
-    """Past the kernel's 32-bit offsets (n*n >= 2**31), and tiles that are
-    not a multiple of 32 threads of 4 columns up to 128 threads, raise."""
-    with pytest.raises(ValueError, match=match):
-        tc.launch_geometry(n, tile)
+def test_offset_limit(n, refused):
+    """The kernel's offsets are 32-bit: n*n >= 2**31 raises, the largest n
+    below it (a multiple of 8) does not."""
+    if refused:
+        with pytest.raises(ValueError, match="32-bit"):
+            tc.check_offsets(n)
+    else:
+        tc.check_offsets(n)
 
 
 def test_tile_edge_operands_put_fd_targets_on_tile_boundaries():
