@@ -46,18 +46,27 @@ Phases, each of which must pass (any failure exits non-zero):
    its plain version (k chained plain cores) at the sparse main path's
    width (n=32768, S=512, k_max=8) for k = 1, 2, 8, and at n=1024,
    S=256 (k_max=5) for k = 1, 3, 5 — all five outputs bit-equal; times
-   per launch and per tick and the bound;
+   per launch and per tick, the slope per added tick (from k=2) and the
+   bound; then at the kernel's tile edges (S = 128 and 384: lanes beside
+   every 128-lane boundary active, an idle second tile, ages and
+   countdowns outside the packable range) and with the caller's planes
+   off 16-byte alignment, at k = 1, 2 and k_max — bit-equal;
 10. the persistent core's path: the k-sweep bench
     (``bench.py::measure_persistent_ksweep``) at n=32768, S=512, k_max=8,
-    its rows printed; one cooperative launch per call, the library built
-    and loaded once;
+    its rows and member·rounds/s per k printed; one cooperative launch per
+    call, the library built and loaded once;
 11. delivery-merge kernel vs plain on the card at n=10240, 256 and 96
-    (f=3) — both outputs bit-equal; times and the bound;
+    (f=3) — both outputs bit-equal; times and the bound; then at the
+    kernel's tile edges (n = 264 and 1032: a partial last tile, fresh
+    records beside every 256-column boundary, the diagonal in every tile)
+    and with planes off 16-byte alignment — bit-equal;
 12. the delivery-merge kernel's path: ``tools/profile_tick.py``'s ``main``
     at n=10240 with 4 iterations and 2 timed calls a piece, the kernel
     launched (2 + 1) x 4 times;
 13. the five card probes (``tools/probe_kernels.py``) pass, each kernel
-    equal to its plain version; their times;
+    equal to its plain version; their times, and the kernels' and library
+    calls' times with the host's dispatch taken out (a CUDA-graph replay
+    of the same 200 calls);
 14. the dense ``convergence`` sum (XLA:CPU's tree order) and the
     per-viewer means under it on the card equal the CPU's at n=10240 on
     seeded terms;
@@ -224,6 +233,30 @@ def _time_cuda(torch, fn, reps):
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _time_graph(torch, fn, reps):
+    """Device ms per call of ``fn`` with the host's dispatch taken out:
+    ``reps`` calls captured in one CUDA graph (after a warm-up on a side
+    stream), timed with CUDA events over one replay after a first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -706,7 +739,11 @@ def phase_persistent_vs_plain(torch):
         sparse_core_persistent,
         sparse_core_persistent_reference,
     )
-    from scalecube_cluster_tpu_torch.testing import persistent_operands
+    from scalecube_cluster_tpu_torch.testing import (
+        misaligned,
+        persistent_operands,
+        tile_edge_persistent_operands,
+    )
 
     names = ("slab", "age", "susp", "self_rumor", "aggr")
     kw = dict(spread=6, susp_ticks=20, age_stale=120, sweep=6,
@@ -744,6 +781,35 @@ def phase_persistent_vs_plain(torch):
                 "library_ms null — no single PyTorch call computes this function"
             )
         del ops, args
+    # From k=2: a k=1 call is short enough for a slow host to set its time.
+    slope = (rows[(32768, 8)]["ms"] - rows[(32768, 2)]["ms"]) / 6
+    say(f"[9] sparse_core_persistent n=32768 S=512: {slope:.4f} ms per added tick "
+        f"((k=8 - k=2) / 6); state streamed per tick "
+        f"{rows[(32768, 1)]['streamed_ms']:.4f} ms at the card's memory rate")
+    # Tile edges (an idle second tile, lanes beside every boundary active,
+    # ages and countdowns outside the packable range), at f=3 and at the
+    # general channel loop's f=2 and f=7.
+    for n, s, f, k_max in ((1024, 128, 3, 4), (1024, 384, 3, 4), (512, 256, 2, 3),
+                           (512, 256, 7, 3)):
+        ops = [torch.from_numpy(v).cuda()
+               for v in tile_edge_persistent_operands(n, s, f, k_max, seed=5).values()]
+        for k in (1, 2, k_max):
+            got = sparse_core_persistent(*ops, k, k_max=k_max, **kw)
+            want = sparse_core_persistent_reference(*ops, k, k_max=k_max, **kw)
+            torch.cuda.synchronize()
+            err = _compare(names, got, want, f"at tile edges n={n} S={s} f={f} k={k}")
+        say(f"[9] sparse_core_persistent tile edges n={n} S={s} f={f} k = 1, 2, {k_max}: "
+            f"bit-equal to plain (max_abs_err {err})")
+    # Caller planes off 16-byte alignment are refused before any launch.
+    ops[0] = misaligned(ops[0])
+    launches = sparse_core_persistent.launches
+    try:
+        sparse_core_persistent(*ops, 1, k_max=k_max, **kw)
+        fail("sparse_core_persistent took a slab off 16-byte alignment")
+    except ValueError as exc:
+        if sparse_core_persistent.launches != launches:
+            fail("sparse_core_persistent launched on a refused plane")
+        say(f"[9] sparse_core_persistent slab off 16-byte alignment: refused ({exc})")
     return rows
 
 
@@ -759,6 +825,8 @@ def phase_persistent_path(torch):
     expect = 1 + k_max * reps
     for row in sweep:
         say(f"[10] {json.dumps(row)}")
+    say("[10] member·rounds/s by k: " + ", ".join(
+        f"k={r['k']} {r['value']:.1f}" for r in sweep))
     say(f"[10] k-sweep n={n} S={s} k_max={k_max}: launches {counts} (expect "
         f"sparse_core_persistent {expect}: one warm-up, {reps} per k); library "
         f"loads {sparse_persistent.LIBRARY.loads}")
@@ -799,7 +867,11 @@ def phase_delivery_merge_vs_plain(torch):
         delivery_merge,
         delivery_merge_reference,
     )
-    from scalecube_cluster_tpu_torch.testing import random_tick_operands
+    from scalecube_cluster_tpu_torch.testing import (
+        misaligned,
+        random_tick_operands,
+        tile_edge_merge_operands,
+    )
 
     fields = ("rows", "view0", "ginv", "rots", "edge_ok", "alive")
     rows = {}
@@ -826,6 +898,22 @@ def phase_delivery_merge_vs_plain(torch):
             "no single PyTorch call computes this function"
         )
         del ops, args
+    # Tile edges (a partial last tile, fresh records beside every boundary,
+    # the diagonal in every tile), planes off 16-byte alignment, and the
+    # general channel loop's f=2 and f=8.
+    for n, f, misalign in ((264, 3, False), (1032, 3, False), (264, 2, True), (264, 2, False),
+                           (1032, 8, False)):
+        ops = tile_edge_merge_operands(n, f, seed=6)
+        args = [torch.from_numpy(ops[k]).cuda() for k in fields]
+        if misalign:
+            args[:2] = [misaligned(t) for t in args[:2]]
+        got = delivery_merge(*args)
+        want = delivery_merge_reference(*args)
+        torch.cuda.synchronize()
+        err = _compare(("merged", "self_rumor"), got, want, f"at tile edges n={n}")
+        say(f"[11] delivery_merge tile edges n={n} f={f}"
+            f"{' (planes off 16-byte alignment)' if misalign else ''}: bit-equal to plain "
+            f"(max_abs_err {err})")
     return rows
 
 
@@ -886,11 +974,18 @@ def phase_probes(torch):
         library = {"p_accum": lambda: torch.sum(args[0], dim=1, dtype=torch.int32),
                    "p_roll": lambda: torch.roll(args[0], pk.ROLL_SHIFT, dims=0)}.get(name)
         lib_ms = _time_cuda(torch, library, 200) if library else None
+        # The same calls with the host's dispatch taken out: 200 captured in
+        # one CUDA graph, timed over a replay.
+        k_dev = _time_graph(torch, lambda: wrapper(*args), 200)
+        lib_dev = _time_graph(torch, library, 200) if library else None
         row = {"max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+               "ms_device": k_dev, "library_ms_device": lib_dev,
                **_bound_row(bytes_moved, n_ops)}
         rows[name] = row
         say(f"[13] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; graph replay (no host "
+            f"dispatch): kernel {k_dev:.4f} ms, library "
+            f"{'null' if lib_dev is None else f'{lib_dev:.4f} ms'}; bound "
             f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({bytes_moved} B)")
     for name in pk.PROBES:
         if counts[name] != 1:
@@ -934,6 +1029,7 @@ def _kernel_entry(name, source, replaces, launches, row, checked_in):
         "bound_bytes_ms": row["bytes_ms"],
         "bound_ops_ms": row["ops_ms"],
         "library_ms": row.get("library_ms"),
+        **{key: row[key] for key in ("ms_device", "library_ms_device") if key in row},
         "checked_in": checked_in,
     }
 
@@ -987,14 +1083,16 @@ def main() -> int:
                 "scalecube_cluster_tpu_torch/csrc/sparse_persistent.cu",
                 "scalecube_cluster_tpu/ops/pallas_sparse.py:867", persist_launches,
                 persist_rows[(32768, 8)],
-                ["[9] kernel vs plain (k = 1, 2, 8 at n=32768; 1, 3, 5 at n=1024)",
+                ["[9] kernel vs plain (k = 1, 2, 8 at n=32768; 1, 3, 5 at n=1024; tile "
+                 "edges at S = 128, 384 and f = 2, 7; planes off alignment refused)",
                  "[10] k-sweep path"],
             ),
             _kernel_entry(
                 "delivery_merge", "scalecube_cluster_tpu_torch/csrc/delivery_merge.cu",
                 "scalecube_cluster_tpu/ops/pallas_tick.py:195", dm_launches,
                 dm_rows[10240],
-                ["[11] kernel vs plain (n=10240, 256, 96)", "[12] profile_tick path"],
+                ["[11] kernel vs plain (n=10240, 256, 96; tile edges at n = 264, 1032 "
+                 "and f = 2, 8; planes off alignment)", "[12] profile_tick path"],
             ),
             *(
                 _kernel_entry(

@@ -2,8 +2,10 @@
 // of scalecube_cluster_tpu_torch/ops/merge.py, the sender-window
 // addressing, the delivered maxima, the merge lattice (merge_views) and
 // the per-cell suspicion countdown, DEAD transition and aging; for the
-// two cores that move four lanes a thread, the packing of int8 and int16
-// lanes into one word and the L2 evict-last loads of the sender band.
+// kernels that move four lanes a thread, the packing of int8 and int16
+// lanes into one word and the L2 evict-last loads of the sender band (by
+// the read-only path, or through L2 alone for planes the same launch
+// wrote).
 // Every kernel source that includes this header is rebuilt when it
 // changes (ops/cuda_build.py hashes the headers with each source).
 #pragma once
@@ -91,7 +93,7 @@ __device__ __forceinline__ Cell countdown(int local, int merged, int a0, int s_l
   return cell;
 }
 
-// Four consecutive lanes a thread owns (the redesigned cores): int32
+// Four consecutive lanes a thread owns (the redesigned kernels): int32
 // planes move as one 16-byte access, int8 planes as one 32-bit word and
 // int16 planes as one 64-bit word.
 constexpr int kQuad = 4;
@@ -143,6 +145,27 @@ __device__ __forceinline__ int4 load_kept_x4(const int32_t* p, uint64_t policy) 
 __device__ __forceinline__ uint32_t load_kept_u32(const void* p, uint64_t policy) {
   uint32_t v;
   asm("ld.global.nc.L2::cache_hint.b32 %0, [%1], %2;" : "=r"(v) : "l"(p), "l"(policy));
+  return v;
+}
+
+// The same through L2 alone (ld.global.cg), for planes that other CTAs of
+// the same launch wrote (the persistent core's ping-pong buffers, read
+// after a grid barrier): the read-only path (.nc) and L1 may hold a line
+// from before the write, L2 is coherent. 16 bytes under ``policy``.
+__device__ __forceinline__ int4 load_kept_cg_x4(const int32_t* p, uint64_t policy) {
+  int4 v;
+  asm volatile("ld.global.cg.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p), "l"(policy));
+  return v;
+}
+
+// 8 bytes through L2 alone under ``policy`` (see load_kept_cg_x4).
+__device__ __forceinline__ uint2 load_kept_cg_u64(const void* p, uint64_t policy) {
+  uint2 v;
+  asm volatile("ld.global.cg.L2::cache_hint.v2.u32 {%0, %1}, [%2], %3;"
+               : "=r"(v.x), "=r"(v.y)
+               : "l"(p), "l"(policy));
   return v;
 }
 

@@ -13,7 +13,8 @@ excluded) and the dead-receiver freeze.
 - :func:`delivery_merge` is the wrapper: on CPU tensors it runs the
   reference; on CUDA tensors it launches ``csrc/delivery_merge.cu`` and
   adds one to ``delivery_merge.launches``, or raises. The reference's
-  m % 128 fallback is a TPU lane rule: the kernel takes any n % 8 == 0.
+  m % 128 fallback is a TPU lane rule: the kernel takes any n % 8 == 0
+  below the 32-bit offset limit (n * n < 2**31).
 """
 
 from __future__ import annotations
@@ -29,10 +30,16 @@ from scalecube_cluster_tpu_torch.ops.delivery import (
     permuted_delivery_two_channel,
 )
 from scalecube_cluster_tpu_torch.ops.merge import is_alive_key, merge_views
+from scalecube_cluster_tpu_torch.ops.tick_core import check_offsets
 
 #: Channels the kernel's per-CTA shared-memory tables hold (``kMaxFanout``
 #: in csrc/delivery_merge.cu).
 MAX_FANOUT = 8
+#: Columns of one CTA's tile (``kTile`` in csrc/delivery_merge.cu, which
+#: owns the grid: n/8 receiver groups by column tiles, the groups fastest,
+#: so ``rows[:, tile]``, 10.5 MB at n=10240, stays in L2 across the f reads
+#: of each sender cell). The tile-edge test operands sit on its boundaries.
+TILE_COLS = 256
 
 
 def delivery_merge_reference(rows, local_view, ginv, rots, edge_ok, alive):
@@ -58,6 +65,7 @@ def _check_operands(rows, local_view, ginv, rots, edge_ok, alive):
         raise ValueError(f"n={n} is not a positive multiple of {GROUP}")
     if not 1 <= f <= MAX_FANOUT:
         raise ValueError(f"gossip fanout {f} outside 1..{MAX_FANOUT}")
+    check_offsets(n)
     expect = {
         "rows": (rows, torch.int32, (n, n)),
         "local_view": (local_view, torch.int32, (n, n)),
@@ -98,7 +106,8 @@ def delivery_merge(rows, local_view, ginv, rots, edge_ok, alive):
     both ``[N, N]`` int32; ``ginv``/``rots`` the structured fan-out ``[f,
     N/8]``; ``edge_ok [f, N]`` and ``alive [N]`` bool. Returns ``(merged,
     self_rumor)``. Raises ``ValueError`` on a wrong dtype, shape, device or
-    contiguity, on n % 8 != 0 and on more than :data:`MAX_FANOUT` channels.
+    contiguity, on n % 8 != 0, on n * n >= 2**31 and on more than
+    :data:`MAX_FANOUT` channels.
 
     CPU tensors run :func:`delivery_merge_reference`. CUDA tensors launch
     the kernel on the current stream and count the launch in

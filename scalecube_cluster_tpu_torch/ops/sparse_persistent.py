@@ -18,7 +18,8 @@ bit 0, ``view_rows`` → bits 1 and 2).
   between ticks as the kernel streams it.
 - :func:`sparse_core_persistent` is the wrapper: on CPU tensors it runs the
   reference; on CUDA tensors it launches ``csrc/sparse_persistent.cu``
-  (one cooperative launch, every tick inside) and adds one to
+  (one cooperative launch, every tick inside; the kernel packs the cold
+  lane in its first tick and unpacks it in its last) and adds one to
   ``sparse_core_persistent.launches``, or raises. ``k`` is a kernel
   argument and every table is sized by ``k_max``, so one build serves
   every k.
@@ -36,33 +37,25 @@ from scalecube_cluster_tpu_torch.ops.sparse_core import (
     AGGR_HOLD_BIT,
     AGGR_SUSPECT_BIT,
     SPARSE_GROUP,
+    check_offsets,
     sparse_core_reference,
 )
 
-#: Bit of the packed flags word holding the receiver's liveness; edge
-#: channel c rides bit c, so the fan-out is at most this.
+#: The reference's largest fan-out: its packed flags word carries edge
+#: channel c in bit c and the receiver's liveness in this bit. The kernel
+#: reads the edge bits and liveness as they are, and keeps the limit.
 ALIVE_BIT = 7
 #: Max suspicion countdown representable in the packed cold lane (7 bits:
 #: the int16 must stay non-negative with age in the low byte).
 COLD_SUSP_MAX = 127
 #: The reference's residual-fold pieces.
 FOLD_PIECES = ("countdown", "points", "wb_mask", "view_rows")
-
-
-def pack_flags(edge_ok, alive):
-    """``[..., f, N]`` bool edge-ok + ``[N]`` bool alive → packed ``[...,
-    N]`` int32: edge channel c in bit c, liveness in bit
-    :data:`ALIVE_BIT`. Leading axes (the persistent core's ticks) pack in
-    one pass."""
-    f = edge_ok.shape[-2]
-    if f > ALIVE_BIT:
-        # Channel c rides bit c: a fan-out above ALIVE_BIT would alias an
-        # edge bit onto the alive bit.
-        raise ValueError(f"gossip fanout {f} > ALIVE_BIT ({ALIVE_BIT})")
-    bits = torch.arange(f, dtype=torch.int32, device=edge_ok.device)[:, None]
-    # Distinct bits: their sum is their OR.
-    word = (edge_ok.to(torch.int32) << bits).sum(dim=-2, dtype=torch.int32)
-    return word | (alive.to(torch.int32) << ALIVE_BIT)
+#: Lanes of one work item's tile (``kTile`` in csrc/sparse_persistent.cu,
+#: which owns the grid: a tick's items are n/32 row blocks by lane tiles,
+#: the blocks fastest, so the band ``(slab, cold)[:, tile]``, 25 MB at
+#: n=32768, stays in L2 across the f reads of each sender cell). The
+#: tile-edge test operands sit on its boundaries.
+TILE_LANES = 128
 
 
 def pack_cold(age, susp):
@@ -117,7 +110,7 @@ def sparse_core_persistent_reference(
 def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, k,
                     *, susp_ticks, k_max, fold):
     """The reference's refusals, with its key words, then the port's dtype,
-    shape, device and contiguity checks. Returns ``int(k)``."""
+    shape, device, contiguity and alignment checks. Returns ``int(k)``."""
     n, s = slab.shape
     if ginv.dim() != 3 or ginv.shape[0] != k_max:
         raise ValueError(f"ginv must be [k_max={k_max}, f, n/32], got {tuple(ginv.shape)}")
@@ -126,6 +119,7 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, k,
         raise ValueError(f"n={n} not a multiple of {SPARSE_GROUP}")
     if s % 128 != 0:
         raise ValueError(f"S={s} not a multiple of 128")
+    check_offsets(n, s)
     fold = frozenset(fold)
     unknown = fold - set(FOLD_PIECES)
     if unknown:
@@ -146,6 +140,10 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, k,
         raise ValueError(f"k={k} must be in [1, k_max={k_max}]")
     if f < 1:
         raise ValueError("gossip fanout must be at least 1")
+    if f > ALIVE_BIT:
+        # The reference's pack_flags refusal: channel c rides bit c, so a
+        # fan-out above ALIVE_BIT would alias an edge bit onto the alive bit.
+        raise ValueError(f"gossip fanout {f} > ALIVE_BIT ({ALIVE_BIT})")
     expect = {
         "slab": (slab, torch.int32, (n, s)),
         "age": (age, torch.int8, (n, s)),
@@ -165,12 +163,16 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, k,
             raise ValueError(f"{name} must be contiguous")
         if t.device != slab.device:
             raise ValueError(f"{name} is on {t.device}, slab on {slab.device}")
+    for name, t in (("slab", slab), ("age", age), ("susp", susp)):
+        # The kernel moves 4 lanes of these planes in one access.
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     return k
 
 
 def _declare(lib: ctypes.CDLL) -> None:
     lib.sparse_persistent_launch.argtypes = (
-        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+        [ctypes.c_void_p] * 16 + [ctypes.c_int] * 9
         + [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int)]
     )
     lib.sparse_persistent_launch.restype = ctypes.c_int
@@ -195,17 +197,18 @@ def sparse_core_persistent(
     ``fold`` must hold ``countdown`` and not ``points``; ``wb_mask`` and
     ``view_rows`` choose the aggregate's bits. Raises ``ValueError`` on
     every input the reference refuses (with its key words) and on a wrong
-    dtype, shape, device or contiguity.
+    dtype, shape, device or contiguity, or a ``slab``, ``age`` or ``susp``
+    plane that does not start on a 16-byte boundary.
 
     CPU tensors run :func:`sparse_core_persistent_reference`. CUDA tensors
-    launch the cooperative kernel on the current stream, count the launch
-    in ``sparse_core_persistent.launches`` and return the final buffer pair
-    without a copy (A when k is odd, B when k is even), its cold lane
-    unpacked; a missing kernel or a refused launch raises.
+    launch the cooperative kernel on the current stream and count the
+    launch in ``sparse_core_persistent.launches``; the kernel reads the
+    caller's planes, edge bits and liveness as they are and writes the
+    final slab and the unpacked age and countdown planes, so the wrapper
+    launches nothing else. A missing kernel or a refused launch raises.
     """
     args = (slab, age, susp, slot_subj, ginv, rots, edge_ok, alive)
     k = _check_operands(*args, k, susp_ticks=susp_ticks, k_max=k_max, fold=fold)
-    flags = pack_flags(edge_ok, alive)
     consts = dict(spread=spread, susp_ticks=susp_ticks, age_stale=age_stale,
                   sweep=sweep, k_max=k_max, fold=fold)
     if slab.device.type == "cpu":
@@ -214,17 +217,17 @@ def sparse_core_persistent(
         raise ValueError(f"sparse_core_persistent: unsupported device {slab.device}")
     lib = LIBRARY.load()
     n, s = slab.shape
-    cold = pack_cold(age, susp)
     slab_a, slab_b = torch.empty_like(slab), torch.empty_like(slab)
-    cold_a, cold_b = torch.empty_like(cold), torch.empty_like(cold)
-    self_rumor = torch.full((n,), -1, dtype=torch.int32, device=slab.device)
-    aggr = torch.zeros((s,), dtype=torch.int32, device=slab.device)
+    cold_a, cold_b = torch.empty_like(susp), torch.empty_like(susp)
+    age_f, susp_f = torch.empty_like(age), torch.empty_like(susp)
+    self_rumor = torch.empty((n,), dtype=torch.int32, device=slab.device)
+    aggr = torch.empty((s,), dtype=torch.int32, device=slab.device)
     grid = ctypes.c_int(0)
     stream = torch.cuda.current_stream(slab.device).cuda_stream
+    ptrs = (slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, slab_a, cold_a, slab_b,
+            cold_b, age_f, susp_f, self_rumor, aggr)
     err = lib.sparse_persistent_launch(
-        slab.data_ptr(), cold.data_ptr(), slot_subj.data_ptr(), ginv.data_ptr(),
-        rots.data_ptr(), flags.data_ptr(), slab_a.data_ptr(), cold_a.data_ptr(),
-        slab_b.data_ptr(), cold_b.data_ptr(), self_rumor.data_ptr(), aggr.data_ptr(),
+        *(t.data_ptr() for t in ptrs),
         n, s, ginv.shape[1], k, spread, susp_ticks, age_stale, sweep,
         _aggr_mask(frozenset(fold)), stream, ctypes.byref(grid),
     )
@@ -233,13 +236,13 @@ def sparse_core_persistent(
         raise RuntimeError(f"sparse_core_persistent: kernel launch failed: {msg} ({err})")
     sparse_core_persistent.launches += 1
     sparse_core_persistent.grid = grid.value
-    slab_f, cold_f = (slab_a, cold_a) if k % 2 == 1 else (slab_b, cold_b)
-    age_f, susp_f = unpack_cold(cold_f)
+    slab_f = slab_a if k % 2 == 1 else slab_b
     return slab_f, age_f, susp_f, self_rumor, aggr
 
 
 sparse_core_persistent.launches = 0
-#: CTAs of the last cooperative launch (occupancy x SM count, at most N/32).
+#: CTAs of the last cooperative launch (occupancy x SM count, at most one
+#: per work item).
 sparse_core_persistent.grid = 0
 
 #: The reference's name for the entry point.

@@ -1,12 +1,16 @@
 """Seeded operands for holding the kernels against their plain versions:
 shared by the parity tests, ``chip_smoke.py`` and the persistent core's
 k-sweep bench (which prices the kernel on the same operand set, as the JAX
-package's rung does). Nothing on the engines' paths imports this module."""
+package's rung does); and :func:`misaligned`, for the kernels' paths that
+take planes off 16-byte alignment. Nothing on the engines' paths imports
+this module."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from scalecube_cluster_tpu_torch.ops import delivery_merge, sparse_persistent
 from scalecube_cluster_tpu_torch.ops.delivery import GROUP
 from scalecube_cluster_tpu_torch.ops.merge import DEAD_BIT
 from scalecube_cluster_tpu_torch.ops.sparse_core import SPARSE_GROUP, TILE_LANES
@@ -162,3 +166,54 @@ def persistent_operands(n: int, s: int, f: int = 3, k_max: int = 8, seed: int = 
         "edge_ok": rng.random((k_max, f, n)) < 0.8,
         "alive": rng.random(n) < 0.9,
     }
+
+
+def tile_edge_merge_operands(n: int, f: int = 3, seed: int = 0) -> dict:
+    """:func:`random_tick_operands` whose payload ``rows`` carries, on the
+    columns beside every boundary of the delivery-merge kernel's column
+    tiles (``delivery_merge.TILE_COLS``) and on columns 0 and n - 1, young
+    ALIVE records of an epoch newer than any in the views: every live
+    receiver that an edge reaches takes them in its merge there, so the
+    merge changes cells on both sides of each boundary. The diagonal
+    crosses every tile by itself."""
+    ops = random_tick_operands(n, f, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    edges = _tile_edges(n, delivery_merge.TILE_COLS)
+    fresh = (3 << 22) | (rng.integers(0, 4, (n, edges.size)) << 1)
+    ops["rows"][:, edges] = fresh.astype(np.int32)
+    return ops
+
+
+def tile_edge_persistent_operands(n: int, s: int, f: int = 3, k_max: int = 8,
+                                  seed: int = 0) -> dict:
+    """:func:`persistent_operands` with the lanes beside every boundary of
+    the persistent kernel's lane tiles (``sparse_persistent.TILE_LANES``)
+    and lanes 0 and S - 1 active while free subjects last (each on a
+    subject no other lane holds, so each is one receiver's own lane), every
+    lane of the second tile, where there is one, inactive, and a quarter of
+    the cells' ages and countdowns outside the packable range (any int8
+    age, countdowns of -600..599), which the kernel packs in its first tick
+    as ``pack_cold`` does."""
+    ops = persistent_operands(n, s, f, k_max, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    tile = sparse_persistent.TILE_LANES
+    subj = ops["slot_subj"]
+    edges = _tile_edges(s, tile)
+    free = np.setdiff1d(np.arange(n), subj[subj >= 0])
+    idle = edges[subj[edges] < 0][: free.size]
+    subj[idle] = rng.choice(free, idle.size, replace=False)
+    subj[tile : 2 * tile] = -1
+    wide = rng.random((n, s)) < 0.25
+    ops["age"] = np.where(wide, rng.integers(-128, 128, (n, s)), ops["age"]).astype(np.int8)
+    ops["susp"] = np.where(wide, rng.integers(-600, 600, (n, s)), ops["susp"]).astype(np.int16)
+    return ops
+
+
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element past an aligned
+    address, on ``t``'s device: the fused cores and delivery-merge take such
+    planes one lane at a time; the persistent core's wrapper refuses them."""
+    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf[1 : 1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out

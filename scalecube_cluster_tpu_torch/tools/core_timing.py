@@ -1,13 +1,14 @@
-"""Time the two fused cores (``tick_core``, ``sparse_core``) at the main
-paths' shapes, by fan-out layout, and count their SASS.
+"""Time the port's four large kernels at their paths' shapes and count
+their SASS.
 
 Run on a CUDA card, as a file so that ``--root`` can pick the checkout
 whose package is timed (another tree's, for a same-call A/B):
 
     python scalecube_cluster_tpu_torch/tools/core_timing.py [--root DIR]
+        [--kernels tick_core,sparse_core,persistent,delivery_merge]
         [--sass OUT_DIR]
 
-For each core it draws ``testing.py``'s seeded operands (dense n=10240,
+The two fused cores draw ``testing.py``'s seeded operands (dense n=10240,
 f=3, seed 1; sparse n=32768, S=512, f=3, seed 1: the operands of
 ``chip_smoke.py``'s phases 3 and 6) under two fan-out layouts:
 
@@ -17,12 +18,19 @@ f=3, seed 1; sparse n=32768, S=512, f=3, seed 1: the operands of
   about the same time (the L2 serves all but the first read).
 
 The gap between the two sizes the share of a kernel's time that sender
-re-reads from device memory cost. Each layout's kernel is checked equal
-to the plain version once, then timed with CUDA events (mean per wrapper
-call over ``REPS`` calls after one warm-up). ``--sass OUT_DIR`` writes
-``cuobjdump -sass`` of both libraries there and prints, per kernel, its
-instruction count and each loop's span (a backward branch and its target)
-with its memory instructions by class.
+re-reads from device memory cost. The persistent core is timed on the
+k-sweep's operands at n=32768, S=512, k_max=8 (seed 1, phase 9's) at k = 1
+and k = 8, with the slope per added tick, (ms(8) - ms(1)) / 7;
+delivery-merge on the dense operands at n=10240 (seed 3, phase 11's).
+Each kernel is checked equal to its plain version once, then timed with
+CUDA events (mean per wrapper call over ``REPS`` calls after one warm-up);
+the persistent core and delivery-merge also by the profiler's device time
+per call (``device_ms``, the host's enqueue taken out: the persistent
+core's k=1 call is short enough for a slow host to set its event time).
+``--sass OUT_DIR`` writes ``cuobjdump -sass`` of the chosen kernels'
+libraries there and prints, per kernel, its instruction count and each
+loop's span (a backward branch and its target) with its memory
+instructions by class.
 
 One JSON line per measurement, the card's name and power limit first.
 """
@@ -30,6 +38,7 @@ One JSON line per measurement, the card's name and power limit first.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import shutil
@@ -42,6 +51,9 @@ DENSE = dict(n=10240, f=3, seed=1)
 SPARSE = dict(n=32768, s=512, f=3, seed=1)
 DENSE_CONSTS = dict(spread=42, sweep=86, susp_ticks=350, age_stale=120)
 SPARSE_CONSTS = dict(spread=48, susp_ticks=400, age_stale=120, sweep=98)
+PERSISTENT = dict(n=32768, s=512, f=3, k_max=8, seed=1)
+MERGE = dict(n=10240, f=3, seed=3)
+KERNELS = ("tick_core", "sparse_core", "persistent", "delivery_merge")
 
 
 def neighbour_ginv(ginv):
@@ -67,6 +79,26 @@ def time_cuda(torch, fn, reps=REPS):
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(torch, fn, reps=20):
+    """Device ms per call of ``fn`` with the host taken out: the summed
+    durations of its kernels and memsets under ``torch.profiler``, over
+    ``reps`` calls after one warm-up. Where the host enqueues a call more
+    slowly than the card runs it, :func:`time_cuda` reads the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not spans:
+        raise SystemExit("core_timing: the profiler recorded no device activity")
+    return sum(spans) / 1e3 / reps
+
+
 def _check_equal(torch, got, want, what):
     for i, (g, w) in enumerate(zip(got, want)):
         if not torch.equal(g, w):
@@ -87,6 +119,34 @@ def _time_core(torch, wrapper, reference, operands, consts, label):
         del args
         torch.cuda.empty_cache()
     return rows
+
+
+def _time_persistent(torch, sp, operands):
+    """The persistent core at k = 1 and k = 8, and the slope per added tick."""
+    kw = dict(spread=6, susp_ticks=20, age_stale=120, sweep=6, k_max=PERSISTENT["k_max"],
+              fold=frozenset({"countdown", "wb_mask", "view_rows"}))
+    args = tuple(torch.from_numpy(v).cuda() for v in operands.values())
+    label = "sparse_core_persistent n=32768 S=512"
+    rows = {}
+    for k in (1, PERSISTENT["k_max"]):
+        _check_equal(torch, sp.sparse_core_persistent(*args, k, **kw),
+                     sp.sparse_core_persistent_reference(*args, k, **kw), f"{label} k={k}")
+        call = functools.partial(sp.sparse_core_persistent, *args, k, **kw)
+        rows[k] = {"kernel": label, "k": k, "ms": time_cuda(torch, call),
+                   "device_ms": device_ms(torch, call)}
+    k_hi = PERSISTENT["k_max"]
+    slope = {key: (rows[k_hi][key] - rows[1][key]) / (k_hi - 1) for key in ("ms", "device_ms")}
+    return [*rows.values(), {"kernel": label, "ms_per_added_tick": slope["ms"],
+                             "device_ms_per_added_tick": slope["device_ms"]}]
+
+
+def _time_merge(torch, dm, operands):
+    fields = ("rows", "view0", "ginv", "rots", "edge_ok", "alive")
+    args = tuple(torch.from_numpy(operands[k]).cuda() for k in fields)
+    label = "delivery_merge n=10240"
+    _check_equal(torch, dm.delivery_merge(*args), dm.delivery_merge_reference(*args), label)
+    call = functools.partial(dm.delivery_merge, *args)
+    return [{"kernel": label, "ms": time_cuda(torch, call), "device_ms": device_ms(torch, call)}]
 
 
 #: Memory instruction classes counted per loop (global and shared loads
@@ -134,8 +194,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="core_timing.py")
     ap.add_argument("--root", type=Path, default=Path(__file__).resolve().parents[2],
                     help="checkout whose scalecube_cluster_tpu_torch is timed")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help=f"comma-separated subset of {', '.join(KERNELS)}")
     ap.add_argument("--sass", type=Path, help="write cuobjdump -sass here and count it")
     args = ap.parse_args(argv)
+    chosen = args.kernels.split(",")
+    if not set(chosen) <= set(KERNELS):
+        ap.error(f"--kernels: unknown {sorted(set(chosen) - set(KERNELS))}")
     sys.path.insert(0, str(args.root.resolve()))
 
     import torch
@@ -143,25 +208,39 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("core_timing: no CUDA device; the timing needs the card", file=sys.stderr)
         return 2
+    from scalecube_cluster_tpu_torch import testing
+    from scalecube_cluster_tpu_torch.ops import delivery_merge as dm
     from scalecube_cluster_tpu_torch.ops import sparse_core as sc
+    from scalecube_cluster_tpu_torch.ops import sparse_persistent as sp
     from scalecube_cluster_tpu_torch.ops import tick_core as tc
-    from scalecube_cluster_tpu_torch.testing import random_operands, random_tick_operands
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     root = str(args.root.resolve())
     print(json.dumps({"card": card, "root": root, "torch": torch.__version__}), flush=True)
-    dense_ops = random_tick_operands(DENSE["n"], DENSE["f"], seed=DENSE["seed"], susp_ticks=350)
-    for row in _time_core(torch, tc.tick_core, tc.tick_core_reference, dense_ops,
-                          DENSE_CONSTS, "tick_core n=10240"):
-        print(json.dumps({**row, "root": root}), flush=True)
-    del dense_ops
-    sparse_ops = random_operands(SPARSE["n"], SPARSE["s"], SPARSE["f"], seed=SPARSE["seed"])
-    for row in _time_core(torch, sc.sparse_core, sc.sparse_core_reference, sparse_ops,
-                          SPARSE_CONSTS, "sparse_core n=32768 S=512"):
-        print(json.dumps({**row, "root": root}), flush=True)
+    timings = {
+        "tick_core": lambda: _time_core(
+            torch, tc.tick_core, tc.tick_core_reference,
+            testing.random_tick_operands(DENSE["n"], DENSE["f"], seed=DENSE["seed"],
+                                         susp_ticks=350),
+            DENSE_CONSTS, "tick_core n=10240"),
+        "sparse_core": lambda: _time_core(
+            torch, sc.sparse_core, sc.sparse_core_reference,
+            testing.random_operands(SPARSE["n"], SPARSE["s"], SPARSE["f"], seed=SPARSE["seed"]),
+            SPARSE_CONSTS, "sparse_core n=32768 S=512"),
+        "persistent": lambda: _time_persistent(
+            torch, sp, testing.persistent_operands(**PERSISTENT)),
+        "delivery_merge": lambda: _time_merge(
+            torch, dm, testing.random_tick_operands(**MERGE)),
+    }
+    libraries = {"tick_core": tc.LIBRARY, "sparse_core": sc.LIBRARY,
+                 "persistent": sp.LIBRARY, "delivery_merge": dm.LIBRARY}
+    for name in chosen:
+        for row in timings[name]():
+            print(json.dumps({**row, "root": root}), flush=True)
+        torch.cuda.empty_cache()
     if args.sass:
-        for row in dump_sass([tc.LIBRARY, sc.LIBRARY], args.sass):
+        for row in dump_sass([libraries[name] for name in chosen], args.sass):
             print(json.dumps(row), flush=True)
     return 0
 

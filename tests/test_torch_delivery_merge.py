@@ -7,8 +7,8 @@ through the Pallas kernel in interpret mode, at n=96 (not a multiple of
 128) through the reference's own XLA fallback. Inputs come from numpy
 seeds (``testing.random_tick_operands``: keys of every status over a few
 epochs, UNKNOWN cells, dead receivers, lost edges). Both outputs must be
-bit-equal (tolerance: none). The test marked ``cuda`` needs a card and
-skips without one; on a machine with PyTorch alone run it as ``python -m
+bit-equal (tolerance: none). The tests marked ``cuda`` need a card and
+skip without one; on a machine with PyTorch alone run them as ``python -m
 pytest --noconftest -m cuda tests/test_torch_delivery_merge.py``.
 """
 
@@ -17,7 +17,11 @@ import pytest
 import torch
 
 from scalecube_cluster_tpu_torch.ops import delivery_merge as dm
-from scalecube_cluster_tpu_torch.testing import random_tick_operands
+from scalecube_cluster_tpu_torch.testing import (
+    misaligned,
+    random_tick_operands,
+    tile_edge_merge_operands,
+)
 
 FIELDS = ("rows", "view0", "ginv", "rots", "edge_ok", "alive")
 
@@ -49,6 +53,22 @@ def test_reference_matches_jax(n, seed):
     # The self-rumor is the raw diagonal, taken before exclusion: some
     # receivers did hear a rumor about themselves.
     assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("f", [2, dm.MAX_FANOUT])
+def test_reference_matches_jax_at_other_fanouts(f):
+    """The fan-outs of the kernel's general channel loop, 2 and the largest
+    it takes, 8, at n=128 through the Pallas kernel (interpret mode): both
+    outputs bit-equal."""
+    import jax.numpy as jnp
+
+    from scalecube_cluster_tpu.ops.pallas_tick import delivery_merge_pallas
+
+    ops = merge_operands(128, 10 + f, f=f)
+    want = delivery_merge_pallas(*(jnp.asarray(v) for v in ops), interpret=True)
+    got = dm.delivery_merge(*(torch.from_numpy(v) for v in ops))
+    for name, a, b in zip(("merged", "self_rumor"), want, got):
+        assert np.array_equal(np.asarray(a), b.numpy()), (f, name)
 
 
 def test_wrapper_rejects_malformed_operands():
@@ -107,3 +127,81 @@ def test_cuda_kernel_matches_reference_on_card():
         assert dm.delivery_merge.launches == before + 1
         for name, a, b in zip(("merged", "self_rumor"), got, want):
             assert torch.equal(a, b), (n, name)
+
+
+def test_tile_edge_operands_put_fresh_records_on_tile_boundaries():
+    """The tile-edge operands change merges on both sides of each column
+    tile boundary: at every such column some live receiver takes the
+    injected newer-epoch record; the diagonal crosses both tiles."""
+    ops = tile_edge_merge_operands(264, seed=1)
+    assert dm.TILE_COLS == 256
+    merged, _ = dm.delivery_merge(*(torch.from_numpy(ops[k]) for k in FIELDS))
+    view0 = torch.from_numpy(ops["view0"])
+    for j in (0, 255, 256, 263):
+        took = (merged[:, j] >> 22 == 3) & (view0[:, j] >> 22 != 3)
+        assert took.any(), j
+
+
+def test_reference_matches_jax_at_tile_edges():
+    """n=264 on the tile-edge operands, through the reference's XLA
+    fallback (264 is not a multiple of 128): both outputs bit-equal."""
+    import jax.numpy as jnp
+
+    from scalecube_cluster_tpu.ops.pallas_tick import delivery_merge_pallas
+
+    ops = tile_edge_merge_operands(264, seed=2)
+    want = delivery_merge_pallas(*(jnp.asarray(ops[k]) for k in FIELDS), interpret=True)
+    got = dm.delivery_merge(*(torch.from_numpy(ops[k]) for k in FIELDS))
+    for name, a, b in zip(("merged", "self_rumor"), want, got):
+        assert np.array_equal(np.asarray(a), b.numpy()), name
+
+
+@pytest.mark.parametrize(
+    "n,refused",
+    [(10240, False), (46336, False), (46344, True)],
+    ids=["main-path", "last-n-below-2**31", "n*n-past-2**31"],
+)
+def test_offset_limit(n, refused):
+    """The kernel's offsets are 32-bit: n*n >= 2**31 raises before any
+    work; the largest n below it (a multiple of 8) passes every check and
+    is refused only for its (memoryless) device."""
+    meta = dict(device="meta")
+    ops = [
+        torch.empty((n, n), dtype=torch.int32, **meta),
+        torch.empty((n, n), dtype=torch.int32, **meta),
+        torch.empty((3, n // 8), dtype=torch.int32, **meta),
+        torch.empty((3, n // 8), dtype=torch.int32, **meta),
+        torch.empty((3, n), dtype=torch.bool, **meta),
+        torch.empty((n,), dtype=torch.bool, **meta),
+    ]
+    with pytest.raises(ValueError, match="32-bit" if refused else "unsupported device"):
+        dm.delivery_merge(*ops)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n,f,misalign",
+    [(264, 3, False), (1032, 3, False), (264, 2, True), (264, 2, False),
+     (1032, dm.MAX_FANOUT, False)],
+    ids=["264-3-edges", "1032-3-edges", "264-2-edges-misaligned", "264-2-edges",
+         "1032-8-edges"],
+)
+def test_cuda_kernel_matches_reference_at_tile_edges(n, f, misalign):
+    """On the card: the kernel equals the plain version bit for bit at n =
+    264 and 1032 (a partial last tile, fresh records beside every tile
+    boundary, the diagonal crossing every tile), with rows and local off
+    16-byte alignment, and at the fan-outs of the general channel loop, 2
+    and the largest, 8; one launch each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ops = tile_edge_merge_operands(n, f, seed=6)
+    args = [torch.from_numpy(ops[k]).cuda() for k in FIELDS]
+    if misalign:
+        args[0], args[1] = misaligned(args[0]), misaligned(args[1])
+    before = dm.delivery_merge.launches
+    got = dm.delivery_merge(*args)
+    want = dm.delivery_merge_reference(*args)
+    torch.cuda.synchronize()
+    assert dm.delivery_merge.launches == before + 1
+    for name, a, b in zip(("merged", "self_rumor"), got, want):
+        assert torch.equal(a, b), (n, name)

@@ -16,7 +16,7 @@ import torch
 
 from scalecube_cluster_tpu_torch.ops import cuda_build
 from scalecube_cluster_tpu_torch.ops import sparse_core as sc
-from scalecube_cluster_tpu_torch.testing import random_operands, tile_edge_operands
+from scalecube_cluster_tpu_torch.testing import misaligned, random_operands, tile_edge_operands
 
 FOLD = frozenset({"countdown", "points", "wb_mask", "view_rows"})
 CONSTS = dict(spread=6, susp_ticks=20, age_stale=120, sweep=14)
@@ -133,10 +133,7 @@ def test_cuda_kernel_matches_reference_on_card(n, s, edges, misalign):
     ops = {k: torch.from_numpy(v).cuda() for k, v in draw(n, s, 3, seed=4).items()}
     if misalign:
         for k in ("slab", "age", "susp"):
-            t = ops[k]
-            buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
-            ops[k] = buf[1 : 1 + t.numel()].view(t.shape)
-            ops[k].copy_(t)
+            ops[k] = misaligned(ops[k])
     before = sc.sparse_core.launches
     got = sc.sparse_core(*ops.values(), **CONSTS)
     want = sc.sparse_core_reference(*ops.values(), **CONSTS)

@@ -17,7 +17,11 @@ import torch
 
 from scalecube_cluster_tpu_torch.ops import cuda_build
 from scalecube_cluster_tpu_torch.ops import tick_core as tc
-from scalecube_cluster_tpu_torch.testing import random_tick_operands, tile_edge_tick_operands
+from scalecube_cluster_tpu_torch.testing import (
+    misaligned,
+    random_tick_operands,
+    tile_edge_tick_operands,
+)
 
 CONSTS = dict(spread=6, sweep=14, susp_ticks=20, age_stale=120)
 OUTPUTS = ("view2", "age2", "susp2", "rows_next", "self_rumor", "known_cnt")
@@ -121,15 +125,6 @@ def test_tile_edge_operands_put_fd_targets_on_tile_boundaries():
     assert {0, 255, 256, 511, 512, 767, 768, 1023, 1024, 1031} <= set(ops["fd_tgt"].tolist())
 
 
-def _misaligned(t):
-    """A contiguous copy of ``t`` that starts one element past an aligned
-    address (the kernel's one-column-at-a-time path)."""
-    buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
-    out = buf[1 : 1 + t.numel()].view(t.shape)
-    out.copy_(t)
-    return out
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n,f,edges,misalign",
@@ -148,7 +143,7 @@ def test_cuda_kernel_matches_reference_on_card(n, f, edges, misalign):
     ops = _torch_ops(draw(n, f, seed=4), "cuda")
     if misalign:
         for k in ("rows", "view0", "age", "susp"):
-            ops[k] = _misaligned(ops[k])
+            ops[k] = misaligned(ops[k])
     before = tc.tick_core.launches
     got = tc.tick_core(*ops.values(), **CONSTS)
     want = tc.tick_core_reference(*ops.values(), **CONSTS)
