@@ -66,7 +66,12 @@ Phases, each of which must pass (any failure exits non-zero):
 13. the five card probes (``tools/probe_kernels.py``) pass, each kernel
     equal to its plain version; their times, and the kernels' and library
     calls' times with the host's dispatch taken out (a CUDA-graph replay
-    of the same 200 calls);
+    of the same 200 calls), beside the launch floor (an empty kernel's
+    time, replayed the same way); p_accum and p_fdmask also bit-equal at
+    ragged shapes (33x500, 1x4, 96x1028, 7x501, 3x2), aligned and off
+    16-byte alignment, and at the dense main path's width (10240x10240),
+    where both are timed beside their bound (and p_accum beside
+    ``torch.sum``);
 14. the dense ``convergence`` sum (XLA:CPU's tree order) and the
     per-viewer means under it on the card equal the CPU's at n=10240 on
     seeded terms;
@@ -952,7 +957,47 @@ def probe_work(pk, name, args):
     return in_bytes + out_bytes, cells * PROBE_OPS_PER_CELL[name]
 
 
+def _probe_vs_plain(torch, pk, name, args, what):
+    """Fail unless probe ``name``'s kernel equals its plain version on
+    ``args``; returns the largest absolute difference (0)."""
+    _, wrapper, reference, _ = pk.PROBES[name]
+    got, want = wrapper(*args), reference(*args)
+    torch.cuda.synchronize()
+    return _compare([name], [got], [want], what)
+
+
+def _probe_wide(torch, pk, name, floor_ms):
+    """p_accum or p_fdmask at the dense main path's width: bit-equal to the
+    plain version, then timed per wrapper call (CUDA events) and on the
+    device alone (graph replay), beside the bound and, for p_accum, one
+    ``torch.sum``."""
+    _, wrapper, reference, _ = pk.PROBES[name]
+    args = [torch.from_numpy(a).cuda() for a in pk.shaped_inputs(name, pk.WIDE_SHAPE, seed=7)]
+    err = _probe_vs_plain(torch, pk, name, args, f"at {pk.WIDE_SHAPE}")
+    reps = 20
+    library = (lambda: torch.sum(args[0], dim=1, dtype=torch.int32)) if name == "p_accum" else None
+    row = {
+        "shape": list(pk.WIDE_SHAPE), "max_abs_err": err,
+        "ms": _time_cuda(torch, lambda: wrapper(*args), reps),
+        "ms_device": _time_graph(torch, lambda: wrapper(*args), reps),
+        "plain_ms": _time_cuda(torch, lambda: reference(*args), reps),
+        "library_ms": _time_cuda(torch, library, reps) if library else None,
+        "library_ms_device": _time_graph(torch, library, reps) if library else None,
+        "launch_floor_ms": floor_ms,
+        **_bound_row(*probe_work(pk, name, args)),
+    }
+    row["share_of_bound"] = row["bound_ms"] / row["ms_device"]
+    lib = row["library_ms_device"]
+    say(f"[13] {name} at {pk.WIDE_SHAPE[0]}x{pk.WIDE_SHAPE[1]}: bit-equal; kernel "
+        f"{row['ms']:.4f} ms, {row['ms_device']:.4f} ms on the device alone "
+        f"({row['share_of_bound']:.3f} of the bound); plain {row['plain_ms']:.4f} ms; library "
+        f"{'null' if lib is None else f'{lib:.4f} ms alone'}; bound {row['bound_ms']:.4f} ms "
+        f"by {row['bound_by']} ({row['bytes']} B); launch floor {floor_ms:.5f} ms")
+    return row
+
+
 def phase_probes(torch):
+    from scalecube_cluster_tpu_torch.testing import misaligned
     from scalecube_cluster_tpu_torch.tools import probe_kernels as pk
 
     reset_counts()
@@ -964,6 +1009,9 @@ def phase_probes(torch):
         say(f"[13] {'PASS' if r['ok'] else 'FAIL'} {r['name']} ({r['title']})")
         if not r["ok"]:
             fail(f"probe {r['name']} failed: {r['error'] or r['max_abs_err']}")
+    # The launch floor: an empty kernel on the device alone, as the probes below.
+    floor_ms = _time_graph(torch, pk.noop, 200)
+    say(f"[13] launch floor: an empty kernel takes {floor_ms:.5f} ms on the device alone")
     for name, ops in pk.probe_inputs(0).items():
         _, wrapper, reference, _ = pk.PROBES[name]
         args = [torch.from_numpy(a).cuda() for a in ops]
@@ -979,17 +1027,30 @@ def phase_probes(torch):
         k_dev = _time_graph(torch, lambda: wrapper(*args), 200)
         lib_dev = _time_graph(torch, library, 200) if library else None
         row = {"max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-               "ms_device": k_dev, "library_ms_device": lib_dev,
+               "ms_device": k_dev, "library_ms_device": lib_dev, "launch_floor_ms": floor_ms,
                **_bound_row(bytes_moved, n_ops)}
         rows[name] = row
         say(f"[13] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; graph replay (no host "
             f"dispatch): kernel {k_dev:.4f} ms, library "
-            f"{'null' if lib_dev is None else f'{lib_dev:.4f} ms'}; bound "
-            f"{row['bound_ms']:.6f} ms by {row['bound_by']} ({bytes_moved} B)")
+            f"{'null' if lib_dev is None else f'{lib_dev:.4f} ms'}, launch floor "
+            f"{floor_ms:.5f} ms; bound {row['bound_ms']:.6f} ms by {row['bound_by']} "
+            f"({bytes_moved} B)")
     for name in pk.PROBES:
         if counts[name] != 1:
             fail(f"probe {name} launched {counts[name]} times on its path, expected 1")
+    # p_accum and p_fdmask beyond the probe's shape: ragged shapes, rows off
+    # 16-byte alignment (the scalar path), then the dense main path's width.
+    for name in ("p_accum", "p_fdmask"):
+        for shape in pk.RAGGED_SHAPES:
+            args = [torch.from_numpy(a).cuda() for a in pk.shaped_inputs(name, shape, seed=7)]
+            _probe_vs_plain(torch, pk, name, args, f"at {shape}")
+            args[-1] = misaligned(args[-1])
+            _probe_vs_plain(torch, pk, name, args, f"at {shape} off 16-byte alignment")
+        say(f"[13] {name}: bit-equal at {', '.join(f'{n}x{m}' for n, m in pk.RAGGED_SHAPES)}, "
+            "aligned and off 16-byte alignment")
+        rows[name]["wide"] = _probe_wide(torch, pk, name, floor_ms)
+        torch.cuda.empty_cache()
     return rows, counts
 
 
@@ -1029,7 +1090,8 @@ def _kernel_entry(name, source, replaces, launches, row, checked_in):
         "bound_bytes_ms": row["bytes_ms"],
         "bound_ops_ms": row["ops_ms"],
         "library_ms": row.get("library_ms"),
-        **{key: row[key] for key in ("ms_device", "library_ms_device") if key in row},
+        **{key: row[key] for key in ("ms_device", "library_ms_device", "launch_floor_ms", "wide")
+           if key in row},
         "checked_in": checked_in,
     }
 
@@ -1098,7 +1160,10 @@ def main() -> int:
                 _kernel_entry(
                     name, "scalecube_cluster_tpu_torch/csrc/probes.cu",
                     f"tools/probe_mosaic.py:{probe[3]}", probe_counts[name],
-                    probe_rows[name], ["[13] probe PASS, kernel vs plain"],
+                    probe_rows[name],
+                    ["[13] probe PASS, kernel vs plain"] + (
+                        ["[13] ragged shapes and 10240x10240, aligned and off alignment"]
+                        if "wide" in probe_rows[name] else []),
                 )
                 for name, probe in PROBES.items()
             ),

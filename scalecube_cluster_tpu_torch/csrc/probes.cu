@@ -1,23 +1,53 @@
 // Feature probes of the card, CUDA C++ for sm_90a: five small kernels, one
-// per probe of scalecube_cluster_tpu/tools/probe_mosaic.py, each checking a
-// feature the port's kernels rely on. Their plain PyTorch twins (from each
-// probe's ``expect`` expression) live in scalecube_cluster_tpu_torch/
-// tools/probe_kernels.py, which runs them and prints PASS or FAIL.
+// per probe of scalecube_cluster_tpu/tools/probe_mosaic.py (the line of
+// each probe's pl.pallas_call below), each checking a feature the port's
+// kernels rely on. Their plain PyTorch twins (from each probe's ``expect``
+// expression) live in scalecube_cluster_tpu_torch/tools/probe_kernels.py,
+// which runs them and prints PASS or FAIL.
 //
-//   probe_smallint  (p_smallint, :48)  int8 / int16 loads and stores with
+//   probe_smallint  (p_smallint, :64)  int8 / int16 loads and stores with
 //                   converts: the age and countdown pass of the cores;
-//   probe_window2d  (p_window2d, :100) a 2D row window copied into shared
+//   probe_window2d  (p_window2d, :116) a 2D row window copied into shared
 //                   memory with cp.async (16 B per thread), then written
 //                   out four times: window staging of a later kernel;
-//   probe_accum     (p_accum, :138)    row sums accumulated across column
-//                   tiles by atomicAdd from parallel CTAs: the cross-block
-//                   accumulation that replaces the TPU's revisited output;
-//   probe_fdmask    (p_fdmask, :165)   per-row target and key tables in
-//                   shared memory with a column compare: the FD cell mask;
-//   probe_roll      (p_roll, :196)     a row roll by ``shift`` of an
+//   probe_accum     (p_accum, :152)    the row sums of an int32 [n, m]: the
+//                   per-row count (tick_core.cu's known_cnt pattern);
+//   probe_fdmask    (p_fdmask, :180)   out = (col == tgt[row]) ? key[row]
+//                   : v: the FD cell mask (tick_core.cu's fd_tgt/fd_key);
+//   probe_roll      (p_roll, :203)     a row roll by ``shift`` of an
 //                   8-row window: the fan-out's rotated sender rows.
 //
-// Each is bound by launch latency at the probes' sizes (tens of KB).
+// At the probes' sizes (tens of KB) each is bound by launch latency.
+// probe_accum and probe_fdmask are designed for the card at the dense main
+// path's width as well ([10240, 10240] int32), where both are bound by
+// device-memory bytes: each input read once, each output written once.
+//
+// probe_accum replaces a TPU kernel that revisits one output block across
+// a sequential grid axis (zero it at column tile 0, add each tile's sums).
+// Here a loop inside a warp takes the place of that axis, so nothing is
+// carried between CTAs: one warp a row, 8 rows a 256-thread CTA. Each lane
+// reads 16-byte vectors along the row, neighbouring lanes on neighbouring
+// addresses (512 contiguous bytes a warp request, four requests in flight
+// a lane), as evict-first streams (__ldcs: nothing is read twice); the
+// warp reduces with __reduce_add_sync and lane 0 stores the row's sum once.
+// No zero fill, no atomics, one launch. The sums are unsigned, so they
+// wrap mod 2**32 exactly as torch.sum(dtype=torch.int32) does.
+// Bound at [10240, 10240]: 419,471,360 B = 0.1252 ms at 3.35 TB/s.
+//
+// probe_fdmask replaces a TPU kernel that brought tgt and key in by scalar
+// prefetch and walked 32-row blocks. Here every thread owns 4 consecutive
+// columns of one row: one 16-byte evict-first load of v, four compares
+// against the row's target (-1 matches no column), one 16-byte
+// evict-first store; tgt[row] and key[row] are two scalar loads a thread
+// that L1 serves to the row's threads. One thread per 4 cells, so every
+// cell is in flight at once and no CTA walks rows in series.
+// Bound at [10240, 10240]: 838,942,720 B = 0.2504 ms at 3.35 TB/s.
+//
+// Both take a scalar path for the whole launch when a row is off 16-byte
+// alignment (m % 4 != 0, or a plane whose base is not 16-byte aligned):
+// probe_accum then reads one int a lane (128 contiguous bytes a warp
+// request), probe_fdmask one cell a thread. probe_fdmask indexes cells in
+// 32 bits; its wrapper refuses n * m >= 2**31.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,39 +102,74 @@ __global__ void window2d_kernel(const int32_t* __restrict__ rows,
   }
 }
 
-// Grid (row blocks of blockDim.x rows, column tiles): each thread sums its
-// row over one tile and adds it into the zero-filled acc.
-__global__ void accum_kernel(const int32_t* __restrict__ x,
-                             int32_t* __restrict__ acc, int n, int m, int mc) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int tile = blockIdx.y;
-  int part = 0;
-  for (int j = tile * mc; j < (tile + 1) * mc && j < m; ++j)
-    part += x[(int64_t)row * m + j];
-  atomicAdd(&acc[row], part);
+constexpr int kWarp = 32;
+constexpr int kRowsPerCta = kThreads / kWarp;
+// 16-byte loads a lane issues before it adds (probe_accum).
+constexpr int kInFlight = 4;
+
+// One warp a row (see the header). kVec: 16-byte vectors (m % 4 == 0 and
+// x 16-byte aligned), else one int a lane.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) accum_kernel(const int32_t* __restrict__ x,
+                                                         int32_t* __restrict__ acc, int n,
+                                                         int m) {
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kRowsPerCta + threadIdx.x / kWarp;
+  if (row >= n) return;  // the whole warp: row is the same for its lanes
+  const int32_t* p = x + (int64_t)row * m;
+  unsigned sum = 0;
+  if constexpr (kVec) {
+    const int4* q = reinterpret_cast<const int4*>(p);
+    const int vecs = m / 4;
+    int j = lane;
+    for (; j + (kInFlight - 1) * kWarp < vecs; j += kInFlight * kWarp) {
+      int4 v[kInFlight];
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u) v[u] = __ldcs(q + j + u * kWarp);
+#pragma unroll
+      for (int u = 0; u < kInFlight; ++u)
+        sum += (unsigned)v[u].x + (unsigned)v[u].y + (unsigned)v[u].z + (unsigned)v[u].w;
+    }
+    for (; j < vecs; j += kWarp) {
+      const int4 v = __ldcs(q + j);
+      sum += (unsigned)v.x + (unsigned)v.y + (unsigned)v.z + (unsigned)v.w;
+    }
+  } else {
+    for (int j = lane; j < m; j += kWarp) sum += (unsigned)__ldcs(p + j);
+  }
+  sum = __reduce_add_sync(0xffffffffu, sum);
+  if (lane == 0) acc[row] = (int32_t)sum;
 }
 
-// One CTA per 32 rows: targets and keys in shared memory, threads along
-// the columns: out = (col == tgt[row]) ? key[row] : v.
-__global__ void fdmask_kernel(const int32_t* __restrict__ tgt,
-                              const int32_t* __restrict__ key,
-                              const int32_t* __restrict__ v,
-                              int32_t* __restrict__ out, int n, int m) {
-  __shared__ int s_tgt[32];
-  __shared__ int s_key[32];
-  const int base = blockIdx.x * 32;
-  if (threadIdx.x < 32 && base + threadIdx.x < n) {
-    s_tgt[threadIdx.x] = tgt[base + threadIdx.x];
-    s_key[threadIdx.x] = key[base + threadIdx.x];
-  }
-  __syncthreads();
-  for (int r = 0; r < 32 && base + r < n; ++r) {
-    const int64_t row = base + r;
-    for (int j = threadIdx.x; j < m; j += blockDim.x)
-      out[row * m + j] = j == s_tgt[r] ? s_key[r] : v[row * m + j];
+// One thread per 4 columns of a row (kVec), else per cell (see the header).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads) fdmask_kernel(const int32_t* __restrict__ tgt,
+                                                          const int32_t* __restrict__ key,
+                                                          const int32_t* __restrict__ v,
+                                                          int32_t* __restrict__ out,
+                                                          unsigned items, unsigned per_row) {
+  const unsigned i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= items) return;
+  const unsigned row = i / per_row;
+  const int t = tgt[row];
+  const int k = key[row];
+  if constexpr (kVec) {
+    const int c = (int)(i - row * per_row) * 4;
+    int4 w = __ldcs(reinterpret_cast<const int4*>(v) + i);
+    w.x = c == t ? k : w.x;
+    w.y = c + 1 == t ? k : w.y;
+    w.z = c + 2 == t ? k : w.z;
+    w.w = c + 3 == t ? k : w.w;
+    __stcs(reinterpret_cast<int4*>(out) + i, w);
+  } else {
+    const int c = (int)(i - row * per_row);
+    __stcs(out + i, c == t ? k : __ldcs(v + i));
   }
 }
+
+// An empty kernel: its device time is the launch floor the probes are
+// read against. No path of the port launches it.
+__global__ void noop_kernel() {}
 
 // out[p, j] = x[(p - shift) mod rows, j].
 __global__ void roll_kernel(const int32_t* __restrict__ x,
@@ -120,6 +185,8 @@ __global__ void roll_kernel(const int32_t* __restrict__ x,
 }
 
 int blocks_for(int cells) { return (cells + kThreads - 1) / kThreads; }
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
 
@@ -145,20 +212,39 @@ extern "C" int probe_window2d(const void* rows, const void* idx, void* out,
   return (int)cudaGetLastError();
 }
 
-extern "C" int probe_accum(const void* x, void* acc, int n, int m, int mc,
-                           void* stream) {
-  if (mc <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + 31) / 32, (m + mc - 1) / mc);
-  accum_kernel<<<grid, 32, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)x, (int32_t*)acc, n, m, mc);
+extern "C" int probe_accum(const void* x, void* acc, int n, int m, void* stream) {
+  if (n <= 0 || m <= 0) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kRowsPerCta - 1) / kRowsPerCta;
+  if (m % 4 == 0 && aligned16(x))
+    accum_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)x, (int32_t*)acc, n, m);
+  else
+    accum_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)x, (int32_t*)acc, n, m);
   return (int)cudaGetLastError();
 }
 
 extern "C" int probe_fdmask(const void* tgt, const void* key, const void* v,
                             void* out, int n, int m, void* stream) {
-  fdmask_kernel<<<(n + 31) / 32, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tgt, (const int32_t*)key, (const int32_t*)v,
-      (int32_t*)out, n, m);
+  const int64_t cells = (int64_t)n * m;
+  if (n <= 0 || m <= 0 || cells >= (int64_t(1) << 31)) return (int)cudaErrorInvalidValue;
+  const bool vec = m % 4 == 0 && aligned16(v) && aligned16(out);
+  const unsigned per_row = vec ? m / 4 : m;
+  const unsigned items = (unsigned)n * per_row;
+  const unsigned blocks = (items + kThreads - 1) / kThreads;
+  if (vec)
+    fdmask_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)tgt, (const int32_t*)key, (const int32_t*)v, (int32_t*)out, items,
+        per_row);
+  else
+    fdmask_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)tgt, (const int32_t*)key, (const int32_t*)v, (int32_t*)out, items,
+        per_row);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int probe_noop(void* stream) {
+  noop_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }
 

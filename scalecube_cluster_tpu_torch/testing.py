@@ -212,7 +212,8 @@ def tile_edge_persistent_operands(n: int, s: int, f: int = 3, k_max: int = 8,
 def misaligned(t: torch.Tensor) -> torch.Tensor:
     """A contiguous copy of ``t`` that starts one element past an aligned
     address, on ``t``'s device: the fused cores and delivery-merge take such
-    planes one lane at a time; the persistent core's wrapper refuses them."""
+    planes one lane at a time, the p_accum and p_fdmask probes by a scalar
+    path; the persistent core's wrapper refuses them."""
     buf = torch.empty(t.numel() + 16, dtype=t.dtype, device=t.device)
     out = buf[1 : 1 + t.numel()].view(t.shape)
     out.copy_(t)

@@ -1,11 +1,12 @@
-"""Time the port's four large kernels at their paths' shapes and count
+"""Time the port's four large kernels at their paths' shapes, and two of
+the card probes at theirs and at the dense main path's width, and count
 their SASS.
 
 Run on a CUDA card, as a file so that ``--root`` can pick the checkout
 whose package is timed (another tree's, for a same-call A/B):
 
     python scalecube_cluster_tpu_torch/tools/core_timing.py [--root DIR]
-        [--kernels tick_core,sparse_core,persistent,delivery_merge]
+        [--kernels tick_core,sparse_core,persistent,delivery_merge,p_accum,p_fdmask]
         [--sass OUT_DIR]
 
 The two fused cores draw ``testing.py``'s seeded operands (dense n=10240,
@@ -21,12 +22,18 @@ The gap between the two sizes the share of a kernel's time that sender
 re-reads from device memory cost. The persistent core is timed on the
 k-sweep's operands at n=32768, S=512, k_max=8 (seed 1, phase 9's) at k = 1
 and k = 8, with the slope per added tick, (ms(8) - ms(1)) / 7;
-delivery-merge on the dense operands at n=10240 (seed 3, phase 11's).
+delivery-merge on the dense operands at n=10240 (seed 3, phase 11's);
+the probes p_accum and p_fdmask (``tools/probe_kernels.py``) at the
+probe's shape and at [10240, 10240], on operands drawn here (seed 7), so
+that an older tree's probes are timed on the same ones.
 Each kernel is checked equal to its plain version once, then timed with
 CUDA events (mean per wrapper call over ``REPS`` calls after one warm-up);
 the persistent core and delivery-merge also by the profiler's device time
 per call (``device_ms``, the host's enqueue taken out: the persistent
-core's k=1 call is short enough for a slow host to set its event time).
+core's k=1 call is short enough for a slow host to set its event time);
+the probes also on the device alone by a CUDA-graph replay
+(``ms_device``, as ``chip_smoke.py`` phase 13 times them), p_accum beside
+one ``torch.sum(x, dim=1, dtype=torch.int32)`` timed both ways.
 ``--sass OUT_DIR`` writes ``cuobjdump -sass`` of the chosen kernels'
 libraries there and prints, per kernel, its instruction count and each
 loop's span (a backward branch and its target) with its memory
@@ -53,7 +60,8 @@ DENSE_CONSTS = dict(spread=42, sweep=86, susp_ticks=350, age_stale=120)
 SPARSE_CONSTS = dict(spread=48, susp_ticks=400, age_stale=120, sweep=98)
 PERSISTENT = dict(n=32768, s=512, f=3, k_max=8, seed=1)
 MERGE = dict(n=10240, f=3, seed=3)
-KERNELS = ("tick_core", "sparse_core", "persistent", "delivery_merge")
+PROBE_SHAPES = {"p_accum": ((32, 512), (10240, 10240)), "p_fdmask": ((64, 256), (10240, 10240))}
+KERNELS = ("tick_core", "sparse_core", "persistent", "delivery_merge", *PROBE_SHAPES)
 
 
 def neighbour_ginv(ginv):
@@ -74,6 +82,30 @@ def time_cuda(torch, fn, reps=REPS):
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def time_graph(torch, fn, reps=REPS):
+    """Device ms per call of ``fn`` with the host's dispatch taken out:
+    ``reps`` calls captured in one CUDA graph (after a warm-up on a side
+    stream), timed with CUDA events over one replay after a first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -149,6 +181,44 @@ def _time_merge(torch, dm, operands):
     return [{"kernel": label, "ms": time_cuda(torch, call), "device_ms": device_ms(torch, call)}]
 
 
+def probe_operands(name, shape, seed=7):
+    """Seeded numpy operands of p_accum (all of int32) or p_fdmask (targets
+    in [-1, m)) at ``shape``: ``probe_kernels.shaped_inputs``' draws, made
+    here because an older tree's ``probe_kernels`` lacks it."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n, m = shape
+    if name == "p_accum":
+        return (rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int64).astype(np.int32),)
+    return (rng.integers(-1, m, n).astype(np.int32), rng.integers(0, 1 << 20, n).astype(np.int32),
+            rng.integers(-1, 1 << 20, shape).astype(np.int32))
+
+
+def _time_probe(torch, pk, name):
+    """Probe ``name``'s wrapper at its two shapes: checked once against its
+    plain version, then per call (CUDA events) and on the device alone
+    (graph replay, 20 calls at the wide shape)."""
+    _, wrapper, reference, _ = pk.PROBES[name]
+    rows = []
+    for shape in PROBE_SHAPES[name]:
+        args = tuple(torch.from_numpy(a).cuda() for a in probe_operands(name, shape))
+        label = f"{name} {shape[0]}x{shape[1]}"
+        _check_equal(torch, (wrapper(*args),), (reference(*args),), label)
+        reps = REPS if shape[0] * shape[1] < 1 << 20 else 20
+        call = functools.partial(wrapper, *args)
+        row = {"kernel": label, "ms": time_cuda(torch, call, reps),
+               "ms_device": time_graph(torch, call, reps)}
+        if name == "p_accum":
+            library = functools.partial(torch.sum, args[0], dim=1, dtype=torch.int32)
+            row.update(library_ms=time_cuda(torch, library, reps),
+                       library_ms_device=time_graph(torch, library, reps))
+        rows.append(row)
+        del args, call
+        torch.cuda.empty_cache()
+    return rows
+
+
 #: Memory instruction classes counted per loop (global and shared loads
 #: and stores, atomics and reductions).
 MEMORY_OPS = ("LDG", "STG", "LDS", "STS", "ATOMG", "ATOMS", "REDG", "RED")
@@ -213,6 +283,7 @@ def main(argv=None) -> int:
     from scalecube_cluster_tpu_torch.ops import sparse_core as sc
     from scalecube_cluster_tpu_torch.ops import sparse_persistent as sp
     from scalecube_cluster_tpu_torch.ops import tick_core as tc
+    from scalecube_cluster_tpu_torch.tools import probe_kernels as pk
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
@@ -232,15 +303,19 @@ def main(argv=None) -> int:
             torch, sp, testing.persistent_operands(**PERSISTENT)),
         "delivery_merge": lambda: _time_merge(
             torch, dm, testing.random_tick_operands(**MERGE)),
+        "p_accum": lambda: _time_probe(torch, pk, "p_accum"),
+        "p_fdmask": lambda: _time_probe(torch, pk, "p_fdmask"),
     }
     libraries = {"tick_core": tc.LIBRARY, "sparse_core": sc.LIBRARY,
-                 "persistent": sp.LIBRARY, "delivery_merge": dm.LIBRARY}
+                 "persistent": sp.LIBRARY, "delivery_merge": dm.LIBRARY,
+                 "p_accum": pk.LIBRARY, "p_fdmask": pk.LIBRARY}
     for name in chosen:
         for row in timings[name]():
             print(json.dumps({**row, "root": root}), flush=True)
         torch.cuda.empty_cache()
     if args.sass:
-        for row in dump_sass([libraries[name] for name in chosen], args.sass):
+        for row in dump_sass(list({id(libraries[n]): libraries[n] for n in chosen}.values()),
+                             args.sass):
             print(json.dumps(row), flush=True)
     return 0
 

@@ -8,12 +8,17 @@ expression, at the probe's own shapes:
 
   p_smallint   int8 / int16 loads, stores and converts (ages, countdowns);
   p_window2d   a 2D row window staged in shared memory by ``cp.async``;
-  p_accum      row sums accumulated across column tiles by parallel CTAs;
-  p_fdmask     per-row target / key tables with a column compare;
+  p_accum      the row sums of an int32 [n, m], one warp a row reducing in
+               registers (no zero fill, no atomics);
+  p_fdmask     ``where(col == tgt[row], key[row], v)``, four cells a thread;
   p_roll       the row roll of an 8-row window.
 
 Each wrapper runs its plain version on CPU tensors; on CUDA tensors it
-launches its kernel and adds one to its ``launches``, or raises.
+launches its kernel and adds one to its ``launches``, or raises. p_accum
+and p_fdmask take any [n, m] as well (rows off 16-byte alignment by a
+scalar path; p_fdmask refuses n * m >= 2**31) and check their operands
+on every device; :data:`RAGGED_SHAPES` and :data:`WIDE_SHAPE` are the
+shapes they are held and timed at besides the probe's own.
 
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.tools.probe_kernels``
 prints PASS or FAIL per probe and exits non-zero on any FAIL (2 when there
@@ -34,8 +39,15 @@ from scalecube_cluster_tpu_torch.ops.cuda_build import CudaLibrary
 #: The probes' shapes (tools/probe_mosaic.py).
 SMALLINT_SHAPE = (64, 256)
 WINDOW_ROWS, WINDOW_M, WINDOW_MC, WINDOW_IDX, WINDOW_OUT_ROWS = 64, 512, 256, (3, 1), 32
-ACCUM_SHAPE, ACCUM_MC = (32, 512), 128
+ACCUM_SHAPE = (32, 512)
 FDMASK_SHAPE = (64, 256)
+#: Shapes p_accum and p_fdmask are also held at: ragged row counts, rows
+#: of 1 and 4 columns, widths off a multiple of 4 (the scalar path).
+RAGGED_SHAPES = ((33, 500), (1, 4), (96, 1028), (7, 501), (3, 2))
+#: The dense main path's width, where the two are timed against their bound.
+WIDE_SHAPE = (10240, 10240)
+#: p_fdmask indexes cells in 32 bits.
+MAX_CELLS = 1 << 31
 ROLL_SHAPE, ROLL_SHIFT = (8, 256), 3
 
 
@@ -44,9 +56,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     for name, argtypes in {
         "probe_smallint": [p] * 6 + [i, p],
         "probe_window2d": [p] * 3 + [i] * 4 + [p],
-        "probe_accum": [p] * 2 + [i] * 3 + [p],
+        "probe_accum": [p] * 2 + [i] * 2 + [p],
         "probe_fdmask": [p] * 4 + [i] * 2 + [p],
         "probe_roll": [p] * 2 + [i] * 3 + [p],
+        "probe_noop": [p],
     }.items():
         getattr(lib, name).argtypes = argtypes
         getattr(lib, name).restype = ctypes.c_int
@@ -112,16 +125,26 @@ def window2d(rows, idx):
     return _launch(window2d, "probe_window2d", (rows, idx), (out,), ints)[0]
 
 
+def _check_int32(wrapper, **planes):
+    """Raise ``ValueError`` unless each named operand is int32 of its rank
+    (``name=(tensor, rank)``)."""
+    for name, (t, rank) in planes.items():
+        if t.dtype != torch.int32 or t.dim() != rank:
+            raise ValueError(f"{wrapper.__name__}: {name} must be int32 of rank {rank}, "
+                             f"got {t.dtype} of rank {t.dim()}")
+
+
 def accum_reference(x):
     return x.sum(dim=1, dtype=torch.int32)
 
 
 def accum(x):
-    """p_accum: the row sums of ``x``, accumulated over column tiles."""
+    """p_accum: the row sums of an int32 [n, m] ``x``, wrapping as int32."""
+    _check_int32(accum, x=(x, 2))
     if x.device.type == "cpu":
         return accum_reference(x)
-    acc = torch.zeros((x.shape[0],), dtype=torch.int32, device=x.device)
-    return _launch(accum, "probe_accum", (x,), (acc,), (*x.shape, ACCUM_MC))[0]
+    acc = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
+    return _launch(accum, "probe_accum", (x,), (acc,), tuple(x.shape))[0]
 
 
 def fdmask_reference(fdt, fdk, v):
@@ -130,11 +153,28 @@ def fdmask_reference(fdt, fdk, v):
 
 
 def fdmask(fdt, fdk, v):
-    """p_fdmask: row r's key at its target column, ``v`` elsewhere."""
+    """p_fdmask: row r's key ``fdk[r]`` at its target column ``fdt[r]`` (-1:
+    none), ``v`` elsewhere; int32 [n] targets and keys, int32 [n, m] ``v``."""
+    _check_int32(fdmask, fdt=(fdt, 1), fdk=(fdk, 1), v=(v, 2))
+    if fdt.shape[0] != v.shape[0] or fdk.shape[0] != v.shape[0]:
+        raise ValueError(f"fdmask: fdt {tuple(fdt.shape)} and fdk {tuple(fdk.shape)} "
+                         f"must have one entry per row of v {tuple(v.shape)}")
+    if v.numel() >= MAX_CELLS:
+        raise ValueError(f"fdmask: v has {v.numel()} cells; the kernel takes fewer than 2**31")
     if v.device.type == "cpu":
         return fdmask_reference(fdt, fdk, v)
     out = torch.empty_like(v)
     return _launch(fdmask, "probe_fdmask", (fdt, fdk, v), (out,), tuple(v.shape))[0]
+
+
+def noop(device="cuda"):
+    """Launch the empty kernel on ``device``'s current stream: its device
+    time is the launch floor the probes are read against. Not a probe, and
+    no path launches it."""
+    lib = LIBRARY.load()
+    err = lib.probe_noop(torch.cuda.current_stream(torch.device(device)).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"noop: kernel launch failed: {lib.probes_error_string(err).decode()}")
 
 
 def roll_reference(x):
@@ -153,12 +193,27 @@ for _wrapper in (smallint, window2d, accum, fdmask, roll):
     _wrapper.launches = 0
 
 
+def accum_operands(rng, shape, low=-(1 << 31), high=1 << 31):
+    """p_accum's operand at ``shape``, drawn from ``rng`` in [low, high):
+    by default all of int32, so the row sums wrap."""
+    return (rng.integers(low, high, shape, dtype=np.int64).astype(np.int32),)
+
+
+def fdmask_operands(rng, shape):
+    """p_fdmask's operands at ``shape``: targets in [-1, m), keys, values."""
+    n, m = shape
+    return (
+        rng.integers(-1, m, n).astype(np.int32),
+        rng.integers(0, 1 << 20, n).astype(np.int32),
+        rng.integers(-1, 1 << 20, (n, m)).astype(np.int32),
+    )
+
+
 def probe_inputs(seed: int = 0) -> dict:
     """Each probe's operands as numpy arrays, from one seed, at the probe's
     shapes and value ranges."""
     rng = np.random.default_rng(seed)
     n, m = SMALLINT_SHAPE
-    fn, fm = FDMASK_SHAPE
     return {
         "p_smallint": (
             rng.integers(0, 120, (n, m)).astype(np.int8),
@@ -169,14 +224,16 @@ def probe_inputs(seed: int = 0) -> dict:
             np.arange(WINDOW_ROWS * WINDOW_M, dtype=np.int32).reshape(WINDOW_ROWS, WINDOW_M),
             np.asarray(WINDOW_IDX, np.int32),
         ),
-        "p_accum": (rng.integers(0, 5, ACCUM_SHAPE).astype(np.int32),),
-        "p_fdmask": (
-            rng.integers(-1, fm, fn).astype(np.int32),
-            rng.integers(0, 1 << 20, fn).astype(np.int32),
-            rng.integers(-1, 1 << 20, (fn, fm)).astype(np.int32),
-        ),
+        "p_accum": accum_operands(rng, ACCUM_SHAPE, 0, 5),
+        "p_fdmask": fdmask_operands(rng, FDMASK_SHAPE),
         "p_roll": (np.arange(ROLL_SHAPE[0] * ROLL_SHAPE[1], dtype=np.int32).reshape(ROLL_SHAPE),),
     }
+
+
+def shaped_inputs(name: str, shape, seed: int = 0) -> tuple:
+    """p_accum's or p_fdmask's operands at any ``shape`` (numpy, seeded)."""
+    rng = np.random.default_rng(seed)
+    return {"p_accum": accum_operands, "p_fdmask": fdmask_operands}[name](rng, shape)
 
 
 #: name → (the probe_mosaic.py title, wrapper, plain version, its pallas_call line).

@@ -1,15 +1,19 @@
 """The card probes' plain versions against the ``expect`` expressions of
 the JAX package's ``tools/probe_mosaic.py``, on the same seeded numpy
-operands (tolerance: none). The wrappers run the plain version on CPU
-tensors and launch nothing. The test marked ``cuda`` needs a card and
-skips without one; on a machine with PyTorch alone run it as ``python -m
-pytest --noconftest -m cuda tests/test_torch_probes.py``.
+operands (tolerance: none), at the probes' shapes and, for p_accum and
+p_fdmask, at ragged ones. The wrappers run the plain version on CPU
+tensors and launch nothing; their operand checks run on every device. The
+tests marked ``cuda`` need a card and skip without one; on a machine with
+PyTorch alone run them as ``python -m pytest --noconftest -m cuda
+tests/test_torch_probes.py``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from scalecube_cluster_tpu_torch.testing import misaligned
+from scalecube_cluster_tpu_torch.tools import core_timing
 from scalecube_cluster_tpu_torch.tools import probe_kernels as pk
 
 
@@ -78,3 +82,88 @@ def test_probes_pass_on_card():
     assert all(r["ok"] for r in results), results
     for name, (_, w, _, _) in pk.PROBES.items():
         assert w.launches == before[name] + 1, name
+
+
+@pytest.mark.parametrize("shape", pk.RAGGED_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", ["p_accum", "p_fdmask"])
+def test_plain_matches_expect_at_ragged_shapes(name, shape):
+    """p_accum (row sums over all of int32, so they wrap) and p_fdmask at
+    ragged shapes, widths off a multiple of 4 among them."""
+    ops = pk.shaped_inputs(name, shape, seed=7)
+    _, wrapper, _, _ = pk.PROBES[name]
+    before = wrapper.launches
+    got = wrapper(*(torch.from_numpy(a) for a in ops))
+    assert wrapper.launches == before
+    (want,) = _expect(name, ops)
+    want = np.asarray(want)
+    assert got.numpy().dtype == want.dtype and np.array_equal(got.numpy(), want), name
+
+
+def _int32(*shape):
+    return torch.zeros(shape, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("call, match", [
+    (lambda: pk.accum(_int32(4, 8).to(torch.int64)), "x must be int32 of rank 2"),
+    (lambda: pk.accum(_int32(8)), "x must be int32 of rank 2"),
+    (lambda: pk.fdmask(_int32(4), _int32(4), _int32(4, 8).to(torch.int16)),
+     "v must be int32 of rank 2"),
+    (lambda: pk.fdmask(_int32(4, 1), _int32(4), _int32(4, 8)), "fdt must be int32 of rank 1"),
+    (lambda: pk.fdmask(_int32(4), _int32(4).float(), _int32(4, 8)),
+     "fdk must be int32 of rank 1"),
+    (lambda: pk.fdmask(_int32(3), _int32(4), _int32(4, 8)), "one entry per row"),
+    (lambda: pk.fdmask(_int32(4), _int32(5), _int32(4, 8)), "one entry per row"),
+    # 2**31 cells as a broadcast view: the limit is checked before any read.
+    (lambda: pk.fdmask(_int32(1 << 16), _int32(1 << 16),
+                       _int32(1, 1).expand(1 << 16, 1 << 15)), "fewer than 2"),
+], ids=["accum-dtype", "accum-rank", "fdmask-v-dtype", "fdmask-fdt-rank", "fdmask-fdk-dtype",
+        "fdmask-short-fdt", "fdmask-long-fdk", "fdmask-cells"])
+def test_wrappers_check_operands(call, match):
+    """p_accum's and p_fdmask's operand checks need no card: they run on
+    CPU tensors before the plain version, as on CUDA ones before a launch."""
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+@pytest.mark.parametrize("name", list(core_timing.PROBE_SHAPES))
+def test_core_timing_draws_the_probes_operands(name):
+    """core_timing.py draws p_accum's and p_fdmask's operands itself (so that
+    an older tree's probes are timed on them); they are shaped_inputs'."""
+    shape = core_timing.PROBE_SHAPES[name][0]
+    for got, want in zip(core_timing.probe_operands(name, shape),
+                         pk.shaped_inputs(name, shape, seed=7)):
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "off-alignment"])
+@pytest.mark.parametrize("shape", [None, *pk.RAGGED_SHAPES, pk.WIDE_SHAPE],
+                         ids=lambda s: "probe" if s is None else f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("name", ["p_accum", "p_fdmask"])
+def test_kernel_matches_plain_on_card(name, shape, aligned):
+    """On the card: p_accum's and p_fdmask's kernels equal their plain
+    versions at the probe's shape, the ragged shapes and the dense main
+    path's width, with rows on and off 16-byte alignment (the scalar
+    path); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ops = pk.probe_inputs(0)[name] if shape is None else pk.shaped_inputs(name, shape, seed=7)
+    args = [torch.from_numpy(a).cuda() for a in ops]
+    if not aligned:
+        args[-1] = misaligned(args[-1])
+    _, wrapper, reference, _ = pk.PROBES[name]
+    before = wrapper.launches
+    got = wrapper(*args)
+    assert wrapper.launches == before + 1
+    want = reference(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and torch.equal(got, want), (name, shape, aligned)
+
+
+@pytest.mark.cuda
+def test_noop_launches_on_card():
+    """The launch floor's empty kernel builds and runs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    pk.noop()
+    torch.cuda.synchronize()
