@@ -67,11 +67,13 @@ Phases, each of which must pass (any failure exits non-zero):
     equal to its plain version; their times, and the kernels' and library
     calls' times with the host's dispatch taken out (a CUDA-graph replay
     of the same 200 calls), beside the launch floor (an empty kernel's
-    time, replayed the same way); p_accum and p_fdmask also bit-equal at
-    ragged shapes (33x500, 1x4, 96x1028, 7x501, 3x2), aligned and off
-    16-byte alignment, and at the dense main path's width (10240x10240),
-    where both are timed beside their bound (and p_accum beside
-    ``torch.sum``);
+    time, replayed the same way); each probe also bit-equal at ragged
+    shapes (33x500, 1x4, 96x1028, 7x501, 3x2; p_window2d at 1 to 5 tiles
+    and 8, 32 and 40 output rows), aligned and off 16-byte alignment, and
+    at the dense main path's width (10240x10240; p_window2d 40 tiles into
+    10240 output rows), where each is timed per call and alone beside its
+    bound, its share of the bound and the launch floor (p_accum beside
+    ``torch.sum``, p_roll beside ``torch.roll``);
 14. the dense ``convergence`` sum (XLA:CPU's tree order) and the
     per-viewer means under it on the card equal the CPU's at n=10240 on
     seeded terms;
@@ -176,7 +178,9 @@ DM_OPS_PER_ROW = 4
 #: Integer operations per cell of each probe's function: p_smallint's
 #: compare, min, add and select (o8), subtract, max and select (o16) and
 #: select (ov); p_accum's add per input cell; p_fdmask's compare and select;
-#: the copies (p_window2d, p_roll) none.
+#: the copies (p_window2d, p_roll) none. The kernels' extraction and
+#: packing of bytes and halves within a word are the bytes side, as loads,
+#: stores and address arithmetic are.
 PROBE_OPS_PER_CELL = {
     "p_smallint": 8, "p_window2d": 0, "p_accum": 1, "p_fdmask": 2, "p_roll": 0,
 }
@@ -940,51 +944,63 @@ def phase_delivery_merge_path(torch):
     return launches
 
 
-def probe_work(pk, name, args):
-    """The least probe ``name`` must do on ``args``: the bytes its function
-    reads and writes (each once; p_window2d reads only its two 8-row
-    windows of ``rows``) and its integer operations (per cell of the
-    output, per input cell for p_accum's sums)."""
-    outs = pk.PROBES[name][2](*args)
+def probe_work(pk, name, args, **kw):
+    """The least probe ``name`` must do on ``args`` (``kw``: p_window2d's
+    ``out_rows``): the bytes its function reads and writes, each once and
+    only where the function needs them (p_window2d: each tile's window of
+    min(out_rows, 8) rows of ``rows``; p_smallint: ``v`` only at the young
+    cells of these ages), and its integer operations (per cell of the
+    output, per input cell for p_smallint and p_accum)."""
+    outs = pk.PROBES[name][2](*args, **kw)
     outs = outs if isinstance(outs, tuple) else (outs,)
     out_bytes = sum(o.numel() * o.element_size() for o in outs)
     if name == "p_window2d":
         rows, idx = args
-        in_bytes = idx.numel() * 8 * pk.WINDOW_MC * rows.element_size() + idx.numel() * 4
+        window = min(outs[0].shape[0], 8) * pk.WINDOW_MC * rows.element_size()
+        in_bytes = idx.numel() * (window + idx.element_size())
+    elif name == "p_smallint":
+        a8, a16, v = args
+        young = int((a8 < 7).sum())
+        in_bytes = a8.numel() * (a8.element_size() + a16.element_size()) + young * v.element_size()
     else:
         in_bytes = sum(a.numel() * a.element_size() for a in args)
     cells = args[0].numel() if name in ("p_smallint", "p_accum") else outs[0].numel()
     return in_bytes + out_bytes, cells * PROBE_OPS_PER_CELL[name]
 
 
-def _probe_vs_plain(torch, pk, name, args, what):
+def _probe_vs_plain(torch, pk, name, args, what, **kw):
     """Fail unless probe ``name``'s kernel equals its plain version on
-    ``args``; returns the largest absolute difference (0)."""
+    ``args`` (``kw``: p_window2d's ``out_rows``), every output; returns the
+    largest absolute difference (0)."""
     _, wrapper, reference, _ = pk.PROBES[name]
-    got, want = wrapper(*args), reference(*args)
+    got, want = wrapper(*args, **kw), reference(*args, **kw)
     torch.cuda.synchronize()
-    return _compare([name], [got], [want], what)
+    got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+    return _compare([f"{name} output {i}" for i in range(len(got))], got, want, what)
 
 
 def _probe_wide(torch, pk, name, floor_ms):
-    """p_accum or p_fdmask at the dense main path's width: bit-equal to the
+    """Probe ``name`` at the dense main path's width (p_window2d: 40 tiles
+    of ``rows`` [10240, 10240] into 10240 output rows): bit-equal to the
     plain version, then timed per wrapper call (CUDA events) and on the
-    device alone (graph replay), beside the bound and, for p_accum, one
-    ``torch.sum``."""
+    device alone (graph replay), beside the bound and, for p_accum and
+    p_roll, one ``torch.sum`` or ``torch.roll``."""
     _, wrapper, reference, _ = pk.PROBES[name]
     args = [torch.from_numpy(a).cuda() for a in pk.shaped_inputs(name, pk.WIDE_SHAPE, seed=7)]
-    err = _probe_vs_plain(torch, pk, name, args, f"at {pk.WIDE_SHAPE}")
+    kw = {"out_rows": pk.WIDE_SHAPE[0]} if name == "p_window2d" else {}
+    err = _probe_vs_plain(torch, pk, name, args, f"at {pk.WIDE_SHAPE}", **kw)
     reps = 20
-    library = (lambda: torch.sum(args[0], dim=1, dtype=torch.int32)) if name == "p_accum" else None
+    library = {"p_accum": lambda: torch.sum(args[0], dim=1, dtype=torch.int32),
+               "p_roll": lambda: torch.roll(args[0], pk.ROLL_SHIFT, dims=0)}.get(name)
     row = {
-        "shape": list(pk.WIDE_SHAPE), "max_abs_err": err,
-        "ms": _time_cuda(torch, lambda: wrapper(*args), reps),
-        "ms_device": _time_graph(torch, lambda: wrapper(*args), reps),
-        "plain_ms": _time_cuda(torch, lambda: reference(*args), reps),
+        "shape": list(pk.WIDE_SHAPE), **kw, "max_abs_err": err,
+        "ms": _time_cuda(torch, lambda: wrapper(*args, **kw), reps),
+        "ms_device": _time_graph(torch, lambda: wrapper(*args, **kw), reps),
+        "plain_ms": _time_cuda(torch, lambda: reference(*args, **kw), reps),
         "library_ms": _time_cuda(torch, library, reps) if library else None,
         "library_ms_device": _time_graph(torch, library, reps) if library else None,
         "launch_floor_ms": floor_ms,
-        **_bound_row(*probe_work(pk, name, args)),
+        **_bound_row(*probe_work(pk, name, args, **kw)),
     }
     row["share_of_bound"] = row["bound_ms"] / row["ms_device"]
     lib = row["library_ms_device"]
@@ -1039,15 +1055,25 @@ def phase_probes(torch):
     for name in pk.PROBES:
         if counts[name] != 1:
             fail(f"probe {name} launched {counts[name]} times on its path, expected 1")
-    # p_accum and p_fdmask beyond the probe's shape: ragged shapes, rows off
-    # 16-byte alignment (the scalar path), then the dense main path's width.
-    for name in ("p_accum", "p_fdmask"):
-        for shape in pk.RAGGED_SHAPES:
+    # Every probe beyond its own shape: ragged shapes (p_window2d: tile and
+    # output row counts), the last operand (p_window2d: rows) off 16-byte
+    # alignment (the scalar path), then the dense main path's width.
+    for name in pk.PROBES:
+        if name == "p_window2d":
+            cases = [((n, tiles * pk.WINDOW_MC), {"out_rows": out_rows})
+                     for n, tiles, out_rows in pk.WINDOW_SHAPES]
+        else:
+            cases = [(shape, {}) for shape in pk.RAGGED_SHAPES]
+        for shape, kw in cases:
             args = [torch.from_numpy(a).cuda() for a in pk.shaped_inputs(name, shape, seed=7)]
-            _probe_vs_plain(torch, pk, name, args, f"at {shape}")
-            args[-1] = misaligned(args[-1])
-            _probe_vs_plain(torch, pk, name, args, f"at {shape} off 16-byte alignment")
-        say(f"[13] {name}: bit-equal at {', '.join(f'{n}x{m}' for n, m in pk.RAGGED_SHAPES)}, "
+            what = f"at {shape} {kw or ''}"
+            _probe_vs_plain(torch, pk, name, args, what, **kw)
+            i = 0 if name == "p_window2d" else -1
+            args[i] = misaligned(args[i])
+            _probe_vs_plain(torch, pk, name, args, f"{what} off 16-byte alignment", **kw)
+        shown = (pk.WINDOW_SHAPES if name == "p_window2d" else pk.RAGGED_SHAPES)
+        say(f"[13] {name}: bit-equal at {', '.join('x'.join(map(str, s)) for s in shown)}"
+            f"{' (rows x tiles x output rows)' if name == 'p_window2d' else ''}, "
             "aligned and off 16-byte alignment")
         rows[name]["wide"] = _probe_wide(torch, pk, name, floor_ms)
         torch.cuda.empty_cache()
@@ -1161,9 +1187,8 @@ def main() -> int:
                     name, "scalecube_cluster_tpu_torch/csrc/probes.cu",
                     f"tools/probe_mosaic.py:{probe[3]}", probe_counts[name],
                     probe_rows[name],
-                    ["[13] probe PASS, kernel vs plain"] + (
-                        ["[13] ragged shapes and 10240x10240, aligned and off alignment"]
-                        if "wide" in probe_rows[name] else []),
+                    ["[13] probe PASS, kernel vs plain",
+                     "[13] ragged shapes and 10240x10240, aligned and off alignment"],
                 )
                 for name, probe in PROBES.items()
             ),

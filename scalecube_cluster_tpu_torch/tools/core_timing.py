@@ -1,12 +1,13 @@
-"""Time the port's four large kernels at their paths' shapes, and two of
-the card probes at theirs and at the dense main path's width, and count
+"""Time the port's four large kernels at their paths' shapes, and the
+five card probes at theirs and at the dense main path's width, and count
 their SASS.
 
 Run on a CUDA card, as a file so that ``--root`` can pick the checkout
 whose package is timed (another tree's, for a same-call A/B):
 
     python scalecube_cluster_tpu_torch/tools/core_timing.py [--root DIR]
-        [--kernels tick_core,sparse_core,persistent,delivery_merge,p_accum,p_fdmask]
+        [--kernels tick_core,sparse_core,persistent,delivery_merge,p_smallint,
+                   p_window2d,p_accum,p_fdmask,p_roll]
         [--sass OUT_DIR]
 
 The two fused cores draw ``testing.py``'s seeded operands (dense n=10240,
@@ -23,9 +24,13 @@ re-reads from device memory cost. The persistent core is timed on the
 k-sweep's operands at n=32768, S=512, k_max=8 (seed 1, phase 9's) at k = 1
 and k = 8, with the slope per added tick, (ms(8) - ms(1)) / 7;
 delivery-merge on the dense operands at n=10240 (seed 3, phase 11's);
-the probes p_accum and p_fdmask (``tools/probe_kernels.py``) at the
-probe's shape and at [10240, 10240], on operands drawn here (seed 7), so
-that an older tree's probes are timed on the same ones.
+the five probes (``tools/probe_kernels.py``) at the probe's shape and at
+[10240, 10240] (p_window2d: a [10240, 10240] ``rows``, 40 column tiles and
+10240 output rows), on operands drawn here (seed 7), so that an older
+tree's probes are timed on the same ones. p_window2d is launched through
+its C launcher ``probe_window2d``, which takes the output's row count in
+every tree (an older wrapper fixes it at 32), into one output allocated
+once.
 Each kernel is checked equal to its plain version once, then timed with
 CUDA events (mean per wrapper call over ``REPS`` calls after one warm-up);
 the persistent core and delivery-merge also by the profiler's device time
@@ -33,7 +38,8 @@ per call (``device_ms``, the host's enqueue taken out: the persistent
 core's k=1 call is short enough for a slow host to set its event time);
 the probes also on the device alone by a CUDA-graph replay
 (``ms_device``, as ``chip_smoke.py`` phase 13 times them), p_accum beside
-one ``torch.sum(x, dim=1, dtype=torch.int32)`` timed both ways.
+one ``torch.sum(x, dim=1, dtype=torch.int32)`` and p_roll beside one
+``torch.roll(x, 3, dims=0)``, each timed both ways.
 ``--sass OUT_DIR`` writes ``cuobjdump -sass`` of the chosen kernels'
 libraries there and prints, per kernel, its instruction count and each
 loop's span (a backward branch and its target) with its memory
@@ -60,7 +66,13 @@ DENSE_CONSTS = dict(spread=42, sweep=86, susp_ticks=350, age_stale=120)
 SPARSE_CONSTS = dict(spread=48, susp_ticks=400, age_stale=120, sweep=98)
 PERSISTENT = dict(n=32768, s=512, f=3, k_max=8, seed=1)
 MERGE = dict(n=10240, f=3, seed=3)
-PROBE_SHAPES = {"p_accum": ((32, 512), (10240, 10240)), "p_fdmask": ((64, 256), (10240, 10240))}
+WIDE = (10240, 10240)
+PROBE_SHAPES = {"p_smallint": ((64, 256), WIDE), "p_window2d": ((64, 512), WIDE),
+                "p_accum": ((32, 512), WIDE), "p_fdmask": ((64, 256), WIDE),
+                "p_roll": ((8, 256), WIDE)}
+#: p_window2d's output rows at each of its shapes (the probe's 32; the width's).
+WINDOW_OUT_ROWS = {(64, 512): 32, WIDE: 10240}
+WINDOW_MC = 256
 KERNELS = ("tick_core", "sparse_core", "persistent", "delivery_merge", *PROBE_SHAPES)
 
 
@@ -182,39 +194,81 @@ def _time_merge(torch, dm, operands):
 
 
 def probe_operands(name, shape, seed=7):
-    """Seeded numpy operands of p_accum (all of int32) or p_fdmask (targets
-    in [-1, m)) at ``shape``: ``probe_kernels.shaped_inputs``' draws, made
-    here because an older tree's ``probe_kernels`` lacks it."""
+    """Seeded numpy operands of probe ``name`` at ``shape``:
+    ``probe_kernels.shaped_inputs``' draws, made here because an older
+    tree's ``probe_kernels`` lacks it. p_smallint: ages in [0, 120),
+    countdowns in [0, 400), payloads in [-1, 2**20); p_window2d: ``rows``
+    over all of int32 and one window block in [0, n // 8) per 256-column
+    tile; p_accum and p_roll: all of int32; p_fdmask: targets in [-1, m)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     n, m = shape
-    if name == "p_accum":
+    if name == "p_smallint":
+        return (rng.integers(0, 120, shape).astype(np.int8),
+                rng.integers(0, 400, shape).astype(np.int16),
+                rng.integers(-1, 1 << 20, shape).astype(np.int32))
+    if name == "p_window2d":
+        return (rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int32),
+                rng.integers(0, n // 8, m // WINDOW_MC).astype(np.int32))
+    if name in ("p_accum", "p_roll"):
         return (rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int64).astype(np.int32),)
     return (rng.integers(-1, m, n).astype(np.int32), rng.integers(0, 1 << 20, n).astype(np.int32),
             rng.integers(-1, 1 << 20, shape).astype(np.int32))
 
 
+def window2d_launcher(torch, pk, rows, idx, out_rows):
+    """A call of ``probe_window2d`` (the C launcher) into one output
+    allocated here, and its plain result: for tile j, ``rows``' 8-row
+    window at block ``idx[j]`` repeated down ``out_rows`` rows."""
+    lib = pk.LIBRARY.load()
+    m = rows.shape[1]
+    out = torch.empty((out_rows, m), dtype=torch.int32, device=rows.device)
+
+    def call():
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.probe_window2d(rows.data_ptr(), idx.data_ptr(), out.data_ptr(), idx.numel(),
+                                 m, WINDOW_MC, out_rows, stream)
+        if err:
+            raise SystemExit(f"core_timing: probe_window2d failed ({err})")
+        return out
+
+    want = torch.cat([rows[8 * g: 8 * g + 8, j * WINDOW_MC: (j + 1) * WINDOW_MC]
+                      .repeat(out_rows // 8, 1) for j, g in enumerate(idx.tolist())], dim=1)
+    return call, want
+
+
 def _time_probe(torch, pk, name):
-    """Probe ``name``'s wrapper at its two shapes: checked once against its
-    plain version, then per call (CUDA events) and on the device alone
-    (graph replay, 20 calls at the wide shape)."""
+    """Probe ``name``'s wrapper (p_window2d's launcher) at its two shapes:
+    checked once against its plain version, then per call (CUDA events)
+    and on the device alone (graph replay, 20 calls at the wide shape)."""
     _, wrapper, reference, _ = pk.PROBES[name]
     rows = []
     for shape in PROBE_SHAPES[name]:
         args = tuple(torch.from_numpy(a).cuda() for a in probe_operands(name, shape))
         label = f"{name} {shape[0]}x{shape[1]}"
-        _check_equal(torch, (wrapper(*args),), (reference(*args),), label)
+        if name == "p_window2d":
+            call, want = window2d_launcher(torch, pk, *args, WINDOW_OUT_ROWS[shape])
+            label += f" out_rows={WINDOW_OUT_ROWS[shape]}"
+            want = (want,)
+        else:
+            call, want = functools.partial(wrapper, *args), reference(*args)
+            want = want if isinstance(want, tuple) else (want,)
+        got = call()
+        _check_equal(torch, got if isinstance(got, tuple) else (got,), want, label)
+        del got, want
         reps = REPS if shape[0] * shape[1] < 1 << 20 else 20
-        call = functools.partial(wrapper, *args)
         row = {"kernel": label, "ms": time_cuda(torch, call, reps),
                "ms_device": time_graph(torch, call, reps)}
-        if name == "p_accum":
-            library = functools.partial(torch.sum, args[0], dim=1, dtype=torch.int32)
+        library = {
+            "p_accum": lambda: torch.sum(args[0], dim=1, dtype=torch.int32),
+            "p_roll": lambda: torch.roll(args[0], 3, dims=0),
+        }.get(name)
+        if library is not None:
             row.update(library_ms=time_cuda(torch, library, reps),
                        library_ms_device=time_graph(torch, library, reps))
         rows.append(row)
-        del args, call
+        del args, call, library
         torch.cuda.empty_cache()
     return rows
 
@@ -303,12 +357,11 @@ def main(argv=None) -> int:
             torch, sp, testing.persistent_operands(**PERSISTENT)),
         "delivery_merge": lambda: _time_merge(
             torch, dm, testing.random_tick_operands(**MERGE)),
-        "p_accum": lambda: _time_probe(torch, pk, "p_accum"),
-        "p_fdmask": lambda: _time_probe(torch, pk, "p_fdmask"),
+        **{name: functools.partial(_time_probe, torch, pk, name) for name in PROBE_SHAPES},
     }
     libraries = {"tick_core": tc.LIBRARY, "sparse_core": sc.LIBRARY,
                  "persistent": sp.LIBRARY, "delivery_merge": dm.LIBRARY,
-                 "p_accum": pk.LIBRARY, "p_fdmask": pk.LIBRARY}
+                 **{name: pk.LIBRARY for name in PROBE_SHAPES}}
     for name in chosen:
         for row in timings[name]():
             print(json.dumps({**row, "root": root}), flush=True)

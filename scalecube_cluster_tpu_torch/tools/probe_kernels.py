@@ -6,19 +6,22 @@ kernels rely on, one small CUDA kernel each (``csrc/probes.cu``), held
 against a plain PyTorch version written from the probe's ``expect``
 expression, at the probe's own shapes:
 
-  p_smallint   int8 / int16 loads, stores and converts (ages, countdowns);
-  p_window2d   a 2D row window staged in shared memory by ``cp.async``;
+  p_smallint   int8 / int16 loads, stores and converts (ages, countdowns),
+               4 cells a thread, the payload read only where it is kept;
+  p_window2d   an 8-row window per 256-column tile, picked by an index and
+               repeated down the output rows, one column vector a thread;
   p_accum      the row sums of an int32 [n, m], one warp a row reducing in
                registers (no zero fill, no atomics);
   p_fdmask     ``where(col == tgt[row], key[row], v)``, four cells a thread;
   p_roll       the row roll of an 8-row window.
 
 Each wrapper runs its plain version on CPU tensors; on CUDA tensors it
-launches its kernel and adds one to its ``launches``, or raises. p_accum
-and p_fdmask take any [n, m] as well (rows off 16-byte alignment by a
-scalar path; p_fdmask refuses n * m >= 2**31) and check their operands
-on every device; :data:`RAGGED_SHAPES` and :data:`WIDE_SHAPE` are the
-shapes they are held and timed at besides the probe's own.
+launches its kernel and adds one to its ``launches``, or raises. Every
+wrapper checks its operands on every device, before any read, and takes
+shapes beyond the probe's own (planes off 16-byte alignment by a scalar
+path; p_fdmask and p_roll refuse n * m >= 2**31): :data:`RAGGED_SHAPES`
+(and, for p_window2d, :data:`WINDOW_SHAPES`) and :data:`WIDE_SHAPE` are
+the shapes they are held and timed at besides the probe's.
 
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.tools.probe_kernels``
 prints PASS or FAIL per probe and exits non-zero on any FAIL (2 when there
@@ -41,12 +44,17 @@ SMALLINT_SHAPE = (64, 256)
 WINDOW_ROWS, WINDOW_M, WINDOW_MC, WINDOW_IDX, WINDOW_OUT_ROWS = 64, 512, 256, (3, 1), 32
 ACCUM_SHAPE = (32, 512)
 FDMASK_SHAPE = (64, 256)
-#: Shapes p_accum and p_fdmask are also held at: ragged row counts, rows
-#: of 1 and 4 columns, widths off a multiple of 4 (the scalar path).
+#: Shapes p_smallint, p_accum, p_fdmask and p_roll are also held at:
+#: ragged row counts, rows of 1 and 4 columns, widths off a multiple of 4
+#: (the scalar path of p_accum and p_fdmask), cell counts off a multiple of
+#: 4 (p_smallint's last thread).
 RAGGED_SHAPES = ((33, 500), (1, 4), (96, 1028), (7, 501), (3, 2))
-#: The dense main path's width, where the two are timed against their bound.
+#: p_window2d's: (rows of ``rows``, column tiles, output rows).
+WINDOW_SHAPES = ((8, 1, 8), (24, 3, 40), (64, 2, 32), (40, 5, 8), (16, 1, 40), (64, 4, 32))
+#: The dense main path's width, where the probes are timed against their
+#: bound (p_window2d: 40 tiles of ``rows`` [10240, 10240], 10240 output rows).
 WIDE_SHAPE = (10240, 10240)
-#: p_fdmask indexes cells in 32 bits.
+#: p_fdmask and p_roll index cells in 32 bits.
 MAX_CELLS = 1 << 31
 ROLL_SHAPE, ROLL_SHIFT = (8, 256), 3
 
@@ -54,7 +62,7 @@ ROLL_SHAPE, ROLL_SHIFT = (8, 256), 3
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, argtypes in {
-        "probe_smallint": [p] * 6 + [i, p],
+        "probe_smallint": [p] * 6 + [ctypes.c_int64, p],
         "probe_window2d": [p] * 3 + [i] * 4 + [p],
         "probe_accum": [p] * 2 + [i] * 2 + [p],
         "probe_fdmask": [p] * 4 + [i] * 2 + [p],
@@ -92,6 +100,16 @@ def _launch(wrapper, symbol, inputs, outputs, ints):
     return outputs
 
 
+def _check_planes(wrapper, **planes):
+    """Raise ``ValueError`` unless each named operand has its dtype and
+    rank (``name=(tensor, dtype, rank)``)."""
+    for name, (t, dtype, rank) in planes.items():
+        if t.dtype != dtype or t.dim() != rank:
+            raise ValueError(f"{wrapper.__name__}: {name} must be "
+                             f"{str(dtype).removeprefix('torch.')} of rank {rank}, "
+                             f"got {t.dtype} of rank {t.dim()}")
+
+
 def smallint_reference(a8, a16, v):
     young = a8.to(torch.int32) < 7
     o8 = torch.where(young, 0, torch.clamp_max(a8, 119) + 1).to(torch.int8)
@@ -100,38 +118,49 @@ def smallint_reference(a8, a16, v):
 
 
 def smallint(a8, a16, v):
-    """p_smallint: ``(o8, o16, ov)``, the age / countdown / payload pass."""
+    """p_smallint: ``(o8, o16, ov)``, the age / countdown / payload pass
+    over int8 ages ``a8``, int16 countdowns ``a16`` and int32 payloads
+    ``v`` of one [n, m] shape."""
+    _check_planes(smallint, a8=(a8, torch.int8, 2), a16=(a16, torch.int16, 2),
+                  v=(v, torch.int32, 2))
+    if a16.shape != a8.shape or v.shape != a8.shape:
+        raise ValueError(f"smallint: a8 {tuple(a8.shape)}, a16 {tuple(a16.shape)} and "
+                         f"v {tuple(v.shape)} must have one shape")
     if a8.device.type == "cpu":
         return smallint_reference(a8, a16, v)
     outs = (torch.empty_like(a8), torch.empty_like(a16), torch.empty_like(v))
     return _launch(smallint, "probe_smallint", (a8, a16, v), outs, (a8.numel(),))
 
 
-def window2d_reference(rows, idx):
+def window2d_reference(rows, idx, out_rows=WINDOW_OUT_ROWS):
     tiles = [
-        rows[8 * g: 8 * g + 8, j * WINDOW_MC: (j + 1) * WINDOW_MC].repeat(WINDOW_OUT_ROWS // 8, 1)
+        rows[8 * g: 8 * g + 8, j * WINDOW_MC: (j + 1) * WINDOW_MC].repeat(out_rows // 8, 1)
         for j, g in enumerate(idx.tolist())
     ]
     return torch.cat(tiles, dim=1)
 
 
-def window2d(rows, idx):
-    """p_window2d: for column tile j, the 8-row window at block ``idx[j]``
-    repeated over the 32 output rows."""
+def window2d(rows, idx, out_rows=WINDOW_OUT_ROWS):
+    """p_window2d: for column tile j (256 columns), the 8-row window of
+    int32 ``rows`` at block ``idx[j]`` repeated down ``out_rows`` output
+    rows. ``rows`` has one tile per entry of ``idx`` and a multiple of 8
+    rows, ``out_rows`` is a positive multiple of 8, and every ``idx`` value
+    must lie in ``[0, rows.shape[0] // 8)``: that one is not checked, since
+    checking it would read the device."""
+    _check_planes(window2d, rows=(rows, torch.int32, 2), idx=(idx, torch.int32, 1))
+    n, m = rows.shape
+    if idx.numel() * WINDOW_MC != m:
+        raise ValueError(f"window2d: rows has {m} columns; idx's {idx.numel()} tiles "
+                         f"cover {idx.numel() * WINDOW_MC}")
+    if n % 8 != 0:
+        raise ValueError(f"window2d: rows has {n} rows, not a multiple of 8")
+    if out_rows <= 0 or out_rows % 8 != 0:
+        raise ValueError(f"window2d: out_rows {out_rows} is not a positive multiple of 8")
     if rows.device.type == "cpu":
-        return window2d_reference(rows, idx)
-    out = torch.empty((WINDOW_OUT_ROWS, rows.shape[1]), dtype=torch.int32, device=rows.device)
-    ints = (idx.numel(), rows.shape[1], WINDOW_MC, WINDOW_OUT_ROWS)
+        return window2d_reference(rows, idx, out_rows)
+    out = torch.empty((out_rows, m), dtype=torch.int32, device=rows.device)
+    ints = (idx.numel(), m, WINDOW_MC, out_rows)
     return _launch(window2d, "probe_window2d", (rows, idx), (out,), ints)[0]
-
-
-def _check_int32(wrapper, **planes):
-    """Raise ``ValueError`` unless each named operand is int32 of its rank
-    (``name=(tensor, rank)``)."""
-    for name, (t, rank) in planes.items():
-        if t.dtype != torch.int32 or t.dim() != rank:
-            raise ValueError(f"{wrapper.__name__}: {name} must be int32 of rank {rank}, "
-                             f"got {t.dtype} of rank {t.dim()}")
 
 
 def accum_reference(x):
@@ -140,7 +169,7 @@ def accum_reference(x):
 
 def accum(x):
     """p_accum: the row sums of an int32 [n, m] ``x``, wrapping as int32."""
-    _check_int32(accum, x=(x, 2))
+    _check_planes(accum, x=(x, torch.int32, 2))
     if x.device.type == "cpu":
         return accum_reference(x)
     acc = torch.empty((x.shape[0],), dtype=torch.int32, device=x.device)
@@ -155,7 +184,8 @@ def fdmask_reference(fdt, fdk, v):
 def fdmask(fdt, fdk, v):
     """p_fdmask: row r's key ``fdk[r]`` at its target column ``fdt[r]`` (-1:
     none), ``v`` elsewhere; int32 [n] targets and keys, int32 [n, m] ``v``."""
-    _check_int32(fdmask, fdt=(fdt, 1), fdk=(fdk, 1), v=(v, 2))
+    _check_planes(fdmask, fdt=(fdt, torch.int32, 1), fdk=(fdk, torch.int32, 1),
+                  v=(v, torch.int32, 2))
     if fdt.shape[0] != v.shape[0] or fdk.shape[0] != v.shape[0]:
         raise ValueError(f"fdmask: fdt {tuple(fdt.shape)} and fdk {tuple(fdk.shape)} "
                          f"must have one entry per row of v {tuple(v.shape)}")
@@ -182,7 +212,10 @@ def roll_reference(x):
 
 
 def roll(x):
-    """p_roll: ``x`` rolled by :data:`ROLL_SHIFT` rows."""
+    """p_roll: an int32 [n, m] ``x`` rolled by :data:`ROLL_SHIFT` rows."""
+    _check_planes(roll, x=(x, torch.int32, 2))
+    if x.numel() >= MAX_CELLS:
+        raise ValueError(f"roll: x has {x.numel()} cells; the kernel takes fewer than 2**31")
     if x.device.type == "cpu":
         return roll_reference(x)
     out = torch.empty_like(x)
@@ -209,17 +242,30 @@ def fdmask_operands(rng, shape):
     )
 
 
+def smallint_operands(rng, shape):
+    """p_smallint's operands at ``shape``: ages in [0, 120), countdowns in
+    [0, 400), payloads in [-1, 2**20)."""
+    return (
+        rng.integers(0, 120, shape).astype(np.int8),
+        rng.integers(0, 400, shape).astype(np.int16),
+        rng.integers(-1, 1 << 20, shape).astype(np.int32),
+    )
+
+
+def window2d_operands(rng, shape):
+    """p_window2d's operands for ``rows`` of ``shape`` [n, m]: ``rows`` over
+    all of int32, and one window block in [0, n // 8) per 256-column tile."""
+    n, m = shape
+    return (rng.integers(-(1 << 31), 1 << 31, shape, dtype=np.int32),
+            rng.integers(0, n // 8, m // WINDOW_MC).astype(np.int32))
+
+
 def probe_inputs(seed: int = 0) -> dict:
     """Each probe's operands as numpy arrays, from one seed, at the probe's
     shapes and value ranges."""
     rng = np.random.default_rng(seed)
-    n, m = SMALLINT_SHAPE
     return {
-        "p_smallint": (
-            rng.integers(0, 120, (n, m)).astype(np.int8),
-            rng.integers(0, 400, (n, m)).astype(np.int16),
-            rng.integers(-1, 1 << 20, (n, m)).astype(np.int32),
-        ),
+        "p_smallint": smallint_operands(rng, SMALLINT_SHAPE),
         "p_window2d": (
             np.arange(WINDOW_ROWS * WINDOW_M, dtype=np.int32).reshape(WINDOW_ROWS, WINDOW_M),
             np.asarray(WINDOW_IDX, np.int32),
@@ -231,9 +277,13 @@ def probe_inputs(seed: int = 0) -> dict:
 
 
 def shaped_inputs(name: str, shape, seed: int = 0) -> tuple:
-    """p_accum's or p_fdmask's operands at any ``shape`` (numpy, seeded)."""
+    """Probe ``name``'s operands at any ``shape`` (numpy, seeded; for
+    p_window2d the shape of ``rows``, a multiple of 256 columns wide):
+    p_accum's and p_roll's over all of int32."""
     rng = np.random.default_rng(seed)
-    return {"p_accum": accum_operands, "p_fdmask": fdmask_operands}[name](rng, shape)
+    draw = {"p_smallint": smallint_operands, "p_window2d": window2d_operands,
+            "p_accum": accum_operands, "p_fdmask": fdmask_operands, "p_roll": accum_operands}
+    return draw[name](rng, shape)
 
 
 #: name → (the probe_mosaic.py title, wrapper, plain version, its pallas_call line).
