@@ -77,7 +77,30 @@ Phases, each of which must pass (any failure exits non-zero):
 14. the dense ``convergence`` sum (XLA:CPU's tree order) and the
     per-viewer means under it on the card equal the CPU's at n=10240 on
     seeded terms;
-15. the kernel table as one JSON line, the card's name and power limit,
+15. timelines, card vs CPU: one 3-segment ``FaultSchedule`` (5% loss under
+    a 2-zone world with 400 ms cross-zone latency and zone loss; a dense
+    partition with a flapping link set; clean), kill and restart events and
+    host ops between chunks, run on both devices by the sparse engine at
+    n=1024, S=256 (kernel route) and n=1000 (the XLA chain, 8-row fan-out
+    groups) and by the dense engine at n=1024 (fused core) and with knobs
+    (XLA core) — every state leaf and trace equal, the kernels launched on
+    exactly the ticks the CPU run routes to them; and XLA:CPU's ``exp``
+    and the world's loss composition card == CPU on seeded operands;
+16. the scheduled sparse path at the bench width: n=32768, S=512, the
+    kernel route, 48-tick chunks, one warm-up and 240 collected ticks under
+    a 3-segment schedule (5% loss; the same with a 2-zone 400 ms brownout;
+    5% loss) and one more uncollected chunk, 64 kills at tick 10, 32
+    restarts at tick 100, and
+    ``restart_many_sparse`` / ``leave_sparse`` / ``update_metadata_sparse``
+    between chunks (the last two on live members that hold a slot: the
+    kills fill the slab); ms/tick, member·rounds/s, peak memory and slot
+    overflow; the kernel launched on every tick;
+17. the dense timeline at the dense width: n=10240, fused core, 200 ticks
+    in 40-tick chunks (the last collected) under the ``--geo`` brownout,
+    then the partition-recovery cut (30% minority), then 5% loss; member 7
+    killed at tick 5 and restarted at tick 120; the kernel launched on every
+    tick the tick takes its fast path; then the ``--geo 10240`` bench row;
+18. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
@@ -386,7 +409,8 @@ def _fold_params(n, s):
         fd_period_ticks=2, sync_period_ticks=10, suspicion_ticks=12,
         ping_req_members=2, user_gossip_slots=2,
     )
-    return SparseParams(base=base, slot_budget=s, alloc_cap=16, in_scan_writeback=False)
+    return SparseParams(base=base, slot_budget=s, alloc_cap=16, in_scan_writeback=False,
+                        pallas_core=True)
 
 
 def phase_card_vs_cpu(torch):
@@ -479,7 +503,7 @@ def phase_main_path(torch):
     if launches != expect:
         fail(f"sparse_core launched {launches} times on the main path, expected {expect}")
 
-    params = SparseParams.for_n(n, slot_budget=s, in_scan_writeback=False)
+    params = SparseParams.for_n(n, slot_budget=s, in_scan_writeback=False, pallas_core=True)
     plan = FaultPlan.uniform(loss_percent=5.0, device="cuda")
     state, tr = run_sparse_chunked(params, state, plan, chunk, chunk, collect=True)
     for k, v in tr.items():
@@ -1101,7 +1125,354 @@ def phase_convergence_sum(torch):
         f"card == CPU ({float(card)!r})")
 
 
-def _kernel_entry(name, source, replaces, launches, row, checked_in):
+def _timeline(n, device):
+    """Phase 15's schedule: 5% loss under a 2-zone world (400 ms cross-zone
+    latency, 5% zone loss) from tick 1; a dense partition (a third against
+    the rest) with a flapping link set from tick 25; clean from tick 49;
+    kills at ticks 3 and 4, restarts at 10 and 30, a bounce at 36."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+    from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
+
+    world = (LinkWorld.even_zones(n, 2, device=device)
+             .with_zone_latency(0, 1, 400.0).with_zone_loss(0, 1, 0.05))
+    flap = np.zeros((n, n), bool)
+    flap[: n // 4, n // 2:] = True
+    return (
+        ScheduleBuilder(n)
+        .add_segment(1, FaultPlan.uniform(5.0, device=device), link_world=world)
+        .add_segment(25, FaultPlan.clean(n, device=device).partition(range(n // 3),
+                                                                      range(n // 3, n)),
+                     flap_mask=flap, flap_period=6, flap_on=2)
+        .add_segment(49, FaultPlan.clean(n, device=device))
+        .kill(3, 7).kill(4, 11).restart(10, 7).restart(30, 11).kill(36, 2).restart(36, 2)
+        .build()
+    )
+
+
+class _RouteCounter:
+    """Counts calls of a module-level function for the duration of a run
+    (the CPU twin of a kernel's launch count)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.calls = module, name, 0
+        self.orig = getattr(module, name)
+
+    def __enter__(self):
+        def counted(*a, **kw):
+            self.calls += 1
+            return self.orig(*a, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def phase_timelines_card_vs_cpu(torch):
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
+    from scalecube_cluster_tpu_torch.sim import faults, tick as tick_mod
+    from scalecube_cluster_tpu_torch.sim import sparse as sparse_mod
+    from scalecube_cluster_tpu_torch.sim import state as dense
+    from scalecube_cluster_tpu_torch.sim.convert import (
+        dense_state_to_numpy,
+        sparse_state_to_numpy,
+    )
+    from scalecube_cluster_tpu_torch.sim.knobs import make_knobs
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from scalecube_cluster_tpu_torch.sim.run import run_chunked
+    from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
+
+    # XLA:CPU's exp and the world's fused loss composition: card == CPU.
+    rng = np.random.default_rng(15)
+    x = torch.from_numpy(rng.uniform(-90.0, 89.0, 1 << 20).astype(np.float32))
+    if not torch.equal(faults.xla_exp_f32(x.cuda()).cpu().view(torch.int32),
+                       faults.xla_exp_f32(x).view(torch.int32)):
+        fail("xla_exp_f32 differs between the card and the CPU")
+    n = 4096
+    src = torch.from_numpy(rng.integers(0, n, (n, 3)).astype(np.int32))
+    dst = torch.arange(n, dtype=torch.int32)[:, None]
+    u = torch.from_numpy(rng.uniform(size=(n, 3)).astype(np.float32))
+    loss = {}
+    for dev in ("cuda", "cpu"):
+        world = LinkWorld.even_zones(n, 2, device=dev).with_zone_loss(0, 1, 0.05)
+        plan = faults.FaultPlan.uniform(3.0, 400.0, device=dev).with_link_world(world)
+        legs = [(src.to(dev), dst.to(dev)), (dst.to(dev), src.to(dev))]
+        loss[dev] = (faults.edge_loss(plan, *legs[0]).cpu(),
+                     faults.round_trip_in_time_from(u.to(dev), plan, legs, 200.0).cpu())
+    if not all(torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+               for a, b in zip(loss["cuda"], loss["cpu"])):
+        fail("edge_loss / round_trip_in_time_from differ between the card and the CPU")
+
+    ticks, chunk = 60, 12
+    runs = {}
+
+    def compare(name, card, cpu):
+        for c, ((a, ta), (b, tb)) in enumerate(zip(card, cpu)):
+            if set(a) != set(b) or set(ta) != set(tb):
+                fail(f"[15] {name}: leaf or trace sets differ at chunk {c}")
+            for k in a:
+                if not np.array_equal(a[k], b[k]):
+                    fail(f"[15] {name}: state leaf {k} differs after chunk {c}")
+            for k in ta:
+                if not np.array_equal(np.asarray(ta[k]).view(np.uint8),
+                                      np.asarray(tb[k]).view(np.uint8)):
+                    fail(f"[15] {name}: trace {k} differs in chunk {c}")
+
+    # Sparse: the kernel route at n=1024, S=256; the XLA chain at n=1000.
+    for n, s, pallas in ((1024, 256, True), (1000, 256, False)):
+        params = dataclasses.replace(_fold_params(n, s), pallas_core=pallas)
+        snaps, route = {}, {}
+        for dev in ("cuda", "cpu"):
+            sched = _timeline(n, dev)
+            st = sparse_mod.init_sparse_full_view(n, s, user_gossip_slots=2,
+                                                  record_latency=True, device=dev)
+            out = []
+            launches0 = sparse_core.launches
+            with _RouteCounter(sparse_mod, "sparse_core") as counter:
+                for c in range(ticks // chunk):
+                    st, tr = sparse_mod.run_sparse_chunked(params, st, sched, chunk, chunk=chunk)
+                    out.append((sparse_state_to_numpy(st), tr))
+                    if c == 1:
+                        st = sparse_mod.restart_many_sparse(st, [20, 21])
+                    if c == 2:
+                        st = sparse_mod.update_metadata_sparse(
+                            sparse_mod.leave_sparse(st, 30), 31)
+            snaps[dev] = out
+            route[dev] = (counter.calls, sparse_core.launches - launches0)
+        compare(f"sparse n={n}", snaps["cuda"], snaps["cpu"])
+        expect = ticks if pallas and n % 32 == 0 else 0
+        if route["cuda"] != (expect, expect) or route["cpu"][0] != expect:
+            fail(f"[15] sparse n={n}: kernel routes {route}, expected {expect} of {ticks}")
+        tr = snaps["cuda"][0][1]
+        say(f"[15] sparse n={n} S={s} pallas_core={pallas}: card == CPU over {ticks} ticks "
+            f"({len(snaps['cuda'][-1][0])} leaves, {len(tr)} trace keys); sparse_core "
+            f"launches {route['cuda'][1]} (expected {expect}); zone_intra_conv[0] "
+            f"{tr['zone_intra_conv'][0].tolist()}, kills_fired {int(tr['kills_fired'].sum())}")
+
+    # Dense: the fused core, then knobs on the XLA core.
+    n = 1024
+    for label, pallas, knobbed in (("fused", True, False), ("knobs", False, True)):
+        params = SimParams(
+            n=n, gossip_fanout=3, periods_to_spread=8, periods_to_sweep=18,
+            fd_period_ticks=2, sync_period_ticks=10, suspicion_ticks=12,
+            ping_req_members=2, user_gossip_slots=2, pallas_delivery=pallas,
+        )
+        snaps, route = {}, {}
+        for dev in ("cuda", "cpu"):
+            sched = _timeline(n, dev)
+            knobs = make_knobs(params, 1.5, 2, device=dev) if knobbed else None
+            st = dense.init_full_view(n, user_gossip_slots=2, seed=3, device=dev)
+            seeds = dense.seeds_mask(n, [0, 1], device=dev)
+            out = []
+            launches0 = tick_core.launches
+            with _RouteCounter(tick_mod, "tick_core") as counter:
+                for c in range(ticks // chunk):
+                    st, tr = run_chunked(params, st, sched, seeds, chunk, chunk=chunk,
+                                         knobs=knobs)
+                    out.append((dense_state_to_numpy(st), tr))
+                    if c == 1:
+                        st = dense.restart(st, 40)
+            snaps[dev] = out
+            route[dev] = (counter.calls, tick_core.launches - launches0)
+        compare(f"dense {label}", snaps["cuda"], snaps["cpu"])
+        if route["cuda"] != (route["cpu"][0],) * 2 or (pallas and not 0 < route["cpu"][0] < ticks):
+            fail(f"[15] dense {label}: kernel routes {route}")
+        say(f"[15] dense n={n} {label}: card == CPU over {ticks} ticks; tick_core launches "
+            f"{route['cuda'][1]} (the CPU run routed {route['cpu'][0]} ticks to the core); "
+            f"final convergence {float(snaps['cuda'][-1][1]['convergence'][-1]):.6f}")
+    say("[15] xla_exp_f32 (2^20 values), edge_loss and round_trip_in_time_from under a "
+        "world: card == CPU")
+
+
+def phase_scheduled_sparse(torch):
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+    from scalecube_cluster_tpu_torch.sim.sparse import (
+        SparseParams,
+        init_sparse_full_view,
+        leave_sparse,
+        restart_many_sparse,
+        run_sparse_chunked,
+        update_metadata_sparse,
+    )
+    from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
+
+    n, s, chunk, reps = 32768, 512, 48, 5
+    killed = [7 + 512 * i for i in range(64)]
+    b = (
+        ScheduleBuilder(n)
+        .add_segment(1, FaultPlan.uniform(5.0, device="cuda"))
+        .add_segment(49, FaultPlan.uniform(5.0, device="cuda"),
+                     link_world=LinkWorld.even_zones(n, 2, device="cuda")
+                     .with_zone_latency(0, 1, 400.0))
+        .add_segment(145, FaultPlan.uniform(5.0, device="cuda"))
+    )
+    for m in killed:
+        b = b.kill(10, m)
+    for m in killed[:32]:
+        b = b.restart(100, m)
+    sched = b.build()
+    params = SparseParams.for_n(n, slot_budget=s, in_scan_writeback=False, pallas_core=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = init_sparse_full_view(n, s, device="cuda")
+    state, _ = run_sparse_chunked(params, state, sched, chunk, chunk, collect=False)
+    int(state.view_T[0, 0])
+    host_restarted = killed[32:48]
+    overflow, per_chunk = 0, []
+    for c in range(reps):
+        t0 = time.perf_counter()
+        state, tr = run_sparse_chunked(params, state, sched, chunk, chunk, collect=True)
+        int(state.view_T[0, 0])
+        per_chunk.append(time.perf_counter() - t0)
+        overflow += int(tr["slot_overflow"].sum())
+        for k, v in tr.items():
+            if v.shape[0] != chunk or not np.all(np.isfinite(v)):
+                fail(f"[16] trace {k} malformed: shape {v.shape}")
+        if c == 0:
+            state = restart_many_sparse(state, host_restarted)
+        if c == 1:
+            # The slab is full here (the 64 kills pin their slots through
+            # the 400-tick suspicion), so the two ops take live members that
+            # already hold a slot (a host op on an unloaded member would
+            # need a free one and raise, as the reference's does).
+            slot_subj = state.slot_subj.cpu().numpy()
+            alive = state.alive.cpu().numpy()
+            loaded = [int(m) for m in slot_subj if m >= 0 and alive[m]][:2]
+            state = update_metadata_sparse(leave_sparse(state, loaded[0]), loaded[1])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    # One more chunk uncollected: the path without the counters and the
+    # zone gauges' per-viewer counts.
+    t0 = time.perf_counter()
+    state, _ = run_sparse_chunked(params, state, sched, chunk, chunk, collect=False)
+    int(state.view_T[0, 0])
+    bare_ms = (time.perf_counter() - t0) * 1e3 / chunk
+    counts = read_counts()
+    ticks = (reps + 2) * chunk
+    dt = sum(per_chunk)
+    ms = dt * 1e3 / (reps * chunk)
+    say(f"[16] scheduled sparse path n={n} S={s}: {ms:.3f} ms/tick collected "
+        f"(chunks {', '.join(f'{c * 1e3 / chunk:.3f}' for c in per_chunk)}), "
+        f"{n * reps * chunk / dt:.1f} member·rounds/s, peak device memory {peak_gib:.3f} GiB, "
+        f"slot_overflow total {overflow}; then {bare_ms:.3f} ms/tick uncollected "
+        f"({n * 1e3 / bare_ms:.1f} member·rounds/s); launches {counts} "
+        f"(expect sparse_core {ticks})")
+    if counts["sparse_core"] != ticks:
+        fail(f"sparse_core launched {counts['sparse_core']} times on {ticks} scheduled ticks")
+    slot_subj = state.slot_subj.cpu().numpy()
+    subj_slot = state.subj_slot.cpu().numpy()
+    active = np.flatnonzero(slot_subj >= 0)
+    if not np.array_equal(subj_slot[slot_subj[active]], active) or int(
+        (subj_slot >= 0).sum()
+    ) != active.size:
+        fail("[16] slot tables are inconsistent")
+    if state.t_host != int(state.tick) or state.t_host != ticks:
+        fail(f"[16] tick {int(state.tick)} / mirror {state.t_host}, expected {ticks}")
+    still = killed[48:]
+    alive = state.alive.cpu()
+    if bool(alive[still].any()) or not bool(alive[killed[:48]].all()):
+        fail("[16] kills and restarts did not land")
+    unflagged = []
+    for m in still:
+        sm = int(subj_slot[m])
+        rec = state.slab[:, sm] if sm >= 0 else state.view_T[m, :]
+        if _flagging_viewers(state.alive, rec, m) == 0:
+            unflagged.append(m)
+    if unflagged:
+        fail(f"[16] killed members no live viewer suspects or convicts: {unflagged}")
+    say(f"[16] {len(still)} members still killed, each suspected or convicted by live viewers; "
+        f"last chunk: zone_intra_conv {tr['zone_intra_conv'][-1].tolist()}, kills_fired "
+        f"{int(tr['kills_fired'].sum())}, n_suspected {int(tr['n_suspected'][-1])}")
+    return counts["sparse_core"], {"ms_per_tick": ms, "uncollected_ms_per_tick": bare_ms,
+                                   "peak_gib": peak_gib, "slot_overflow": overflow}
+
+
+def phase_dense_timeline(torch):
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.bench import measure_geo
+    from scalecube_cluster_tpu_torch.sim import state as dense
+    from scalecube_cluster_tpu_torch.sim import tick as tick_mod
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from scalecube_cluster_tpu_torch.sim.run import run_chunked
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+    from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
+
+    n, chunk, ticks = 10240, 40, 200
+    params = dataclasses.replace(SimParams.from_cluster_config(n), pallas_delivery=True)
+    torch.cuda.reset_peak_memory_stats()
+    sched = (
+        ScheduleBuilder(n)
+        .add_segment(1, FaultPlan.uniform(5.0, device="cuda"),
+                     link_world=LinkWorld.even_zones(n, 2, device="cuda")
+                     .with_zone_latency(0, 1, 400.0))
+        .add_segment(81, FaultPlan.clean(n, device="cuda").partition(range(3072),
+                                                                      range(3072, n)))
+        .add_segment(161, FaultPlan.clean(n, device="cuda").with_loss(5.0))
+        .kill(5, 7)
+        .restart(120, 7)
+        .build()
+    )
+    seeds = dense.seeds_mask(n, [0, 1], device="cuda")
+    state = dense.init_full_view(n, device="cuda")
+    reset_counts()
+    slow = []
+    core_xla = tick_mod._core_xla
+
+    def counted(params_, state_, *a, **kw):
+        slow.append(state_.t_host + 1)
+        return core_xla(params_, state_, *a, **kw)
+
+    tick_mod._core_xla = counted
+    per_chunk = []
+    try:
+        for c in range(ticks // chunk):
+            t0 = time.perf_counter()
+            state, tr = run_chunked(params, state, sched, seeds, chunk, chunk=chunk,
+                                    collect=c == ticks // chunk - 1)
+            int(state.view[0, 0])
+            per_chunk.append(time.perf_counter() - t0)
+    finally:
+        tick_mod._core_xla = core_xla
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    fast = ticks - len(slow)
+    say(f"[17] dense timeline n={n}: chunks {', '.join(f'{c * 1e3 / chunk:.3f}' for c in per_chunk)}"
+        f" ms/tick (the last collected), peak device memory {peak_gib:.3f} GiB, slow ticks "
+        f"{slow}, launches {counts} (expect tick_core {fast})")
+    if counts["tick_core"] != fast or 150 not in slow or any(
+        t != 150 and t < 120 for t in slow
+    ):
+        fail(f"[17] tick_core launched {counts['tick_core']} times; slow ticks {slow}")
+    for k, v in tr.items():
+        if v.shape[0] != chunk or not np.all(np.isfinite(v)):
+            fail(f"[17] trace {k} malformed: shape {v.shape}")
+    conv = tr["zone_intra_conv"]
+    if not (np.all(conv >= 0) and np.all(conv <= 1)):
+        fail(f"[17] zone_intra_conv outside [0, 1]: {conv.min()}..{conv.max()}")
+    if not bool(state.alive[7]) or int(state.epoch[7]) != 1:
+        fail("[17] member 7's restart did not land")
+    say(f"[17] collected chunk: convergence {float(tr['convergence'][-1]):.6f}, zone_intra_conv "
+        f"{conv[-1].tolist()}, plan_dirty {int(tr['plan_dirty'].sum())} of {chunk}, "
+        f"n_suspected {int(tr['n_suspected'][-1])}")
+    geo = measure_geo(n)
+    say(f"[17] --geo {n}: {json.dumps(geo)}")
+    return counts["tick_core"], {"chunk_ms_per_tick": [c * 1e3 / chunk for c in per_chunk],
+                                 "peak_gib": peak_gib, "geo": geo}
+
+
+def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None):
     return {
         "name": name,
         "route": "cuda",
@@ -1119,6 +1490,7 @@ def _kernel_entry(name, source, replaces, launches, row, checked_in):
         **{key: row[key] for key in ("ms_device", "library_ms_device", "launch_floor_ms", "wide")
            if key in row},
         "checked_in": checked_in,
+        **({"launches_by_path": by_path} if by_path else {}),
     }
 
 
@@ -1151,20 +1523,27 @@ def main() -> int:
     dm_launches = phase_delivery_merge_path(torch)
     probe_rows, probe_counts = phase_probes(torch)
     phase_convergence_sum(torch)
+    phase_timelines_card_vs_cpu(torch)
+    sched_sparse_launches, _ = phase_scheduled_sparse(torch)
+    sched_dense_launches, _ = phase_dense_timeline(torch)
 
     kernels = {
         "kernels": [
             _kernel_entry(
                 "sparse_core", "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
-                "scalecube_cluster_tpu/ops/pallas_sparse.py:444", sparse_launches,
-                core_rows[(32768, 512)],
-                ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path"],
+                "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
+                sparse_launches + sched_sparse_launches, core_rows[(32768, 512)],
+                ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path",
+                 "[15] timelines card vs CPU", "[16] scheduled path"],
+                {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches},
             ),
             _kernel_entry(
                 "tick_core", "scalecube_cluster_tpu_torch/csrc/tick_core.cu",
-                "scalecube_cluster_tpu/ops/pallas_tick.py:476", dense_launches,
-                dense_rows[10240],
-                ["[6] kernel vs plain", "[7] card vs CPU", "[8] dense main path"],
+                "scalecube_cluster_tpu/ops/pallas_tick.py:476",
+                dense_launches + sched_dense_launches, dense_rows[10240],
+                ["[6] kernel vs plain", "[7] card vs CPU", "[8] dense main path",
+                 "[15] timelines card vs CPU", "[17] dense timeline"],
+                {"[8] dense main path": dense_launches, "[17] dense timeline": sched_dense_launches},
             ),
             _kernel_entry(
                 "sparse_core_persistent",
@@ -1194,7 +1573,7 @@ def main() -> int:
             ),
         ]
     }
-    say(f"[15] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[18] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

@@ -3,8 +3,9 @@ package's ``bench.py::_measure_sparse``, ladder rung 1, and
 ``bench.py::_measure_dense``, its rung ``("dense", 10240, None)``) and of
 the persistent sparse core's k-sweep.
 
-Sparse: ``SparseParams.for_n(n, slot_budget, in_scan_writeback=False)``
-with the LAN preset, ``init_sparse_full_view`` then ``kill_sparse(…, 7)``,
+Sparse: ``SparseParams.for_n(n, slot_budget, in_scan_writeback=False,
+pallas_core=True)`` (the fused kernel on every tick, the whole fold) with
+the LAN preset, ``init_sparse_full_view`` then ``kill_sparse(…, 7)``,
 and ``run_sparse_chunked`` over ``FaultPlan.uniform(5.0)`` in 48-tick
 chunks with ``collect=False`` and a host-boundary write-back per chunk.
 
@@ -16,13 +17,20 @@ chunks with ``collect=False``.
 One chunk warms up; ``reps`` chunks are timed, each ending in a host fetch
 from the large view table, which waits for the whole chunk.
 
+Geo (``bench.py::_measure_geo``, ``--geo [n]``, default n=1024): the dense
+engine (LAN preset, XLA core) under a one-segment ``FaultSchedule`` of
+``FaultPlan.uniform(5.0)`` with a 2-zone ``LinkWorld`` whose cross-zone
+latency is 400 ms, timed like the dense rung; the row also carries its
+flat-world twin (the same schedule without the world), ``flat_value``, and
+``geo_overhead`` = flat / geo (:func:`measure_geo`).
+
 Persistent (``bench.py::_measure_persistent_ksweep``, ``python bench.py
 --persistent-ksweep [n] [k_max]``): the persistent k-tick sparse core
 (``ops/sparse_persistent.py``) swept over launch depth k = 1..k_max on one
 build, over the seeded operands of the JAX rung (:func:`measure_persistent_ksweep`).
 
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
-[--engine sparse|dense] [n] [S] [--runs K]`` prints one JSON line per run
+[--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``) prints one JSON line per run
 of ``CLI_REPS`` timed chunks; ``--profile`` instead prints where a tick's
 time goes (:func:`profile_sparse`, :func:`profile_dense`). ``--engine
 persistent [n] [S] [--k-max K]`` prints one JSON row per k. There is no
@@ -48,6 +56,8 @@ from scalecube_cluster_tpu_torch.sim import state as dense
 from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
 from scalecube_cluster_tpu_torch.sim.params import SimParams
 from scalecube_cluster_tpu_torch.sim.run import run_ticks
+from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
 from scalecube_cluster_tpu_torch.sim.sparse import (
     SparseParams,
     SparseState,
@@ -81,7 +91,9 @@ def rung_slot_budget(n: int) -> int:
 def _warm_main_path(n: int, slot_budget: int, chunk: int):
     """The main path's set-up on the card, seed 0: params, the killed-member
     state after one warm-up chunk, and the 5%-loss plan."""
-    params = SparseParams.for_n(n, slot_budget=slot_budget, in_scan_writeback=False)
+    params = SparseParams.for_n(
+        n, slot_budget=slot_budget, in_scan_writeback=False, pallas_core=True
+    )
     state = kill_sparse(init_sparse_full_view(n, params.slot_budget, device="cuda"), 7)
     plan = FaultPlan.uniform(loss_percent=5.0, device="cuda")
     state, _ = run_sparse_chunked(params, state, plan, chunk, chunk, collect=False)
@@ -268,6 +280,50 @@ def profile_dense(n: int = 10240, ticks: int = 40, chunk: int = 40):
     return row
 
 
+def measure_geo(n: int = 1024, chunk: int = 40, reps: int = 4) -> dict:
+    """The ``--geo [n]`` rung (bench.py::_measure_geo): the dense engine
+    (LAN preset, ``pallas_delivery`` off as there, no kill, seeds [0, 1])
+    under a schedule of one segment from tick 0, ``FaultPlan.uniform(5.0)``
+    with a 2-zone world at 400 ms cross-zone latency; one warm-up and
+    ``reps`` timed ``chunk``-tick runs (collect=False, each ending in a
+    fetch from the view), then the same for the flat-world twin."""
+    params = SimParams.from_cluster_config(n)
+    seeds = dense.seeds_mask(n, [0, 1], device="cuda")
+    world = LinkWorld.even_zones(n, 2, device="cuda").with_zone_latency(0, 1, 400.0)
+
+    def run(link_world):
+        sched = (
+            ScheduleBuilder(n)
+            .add_segment(0, FaultPlan.uniform(loss_percent=5.0, device="cuda"),
+                         link_world=link_world)
+            .build()
+        )
+        state = dense.init_full_view(n, device="cuda")
+        state, _ = run_ticks(params, state, sched, seeds, chunk, collect=False)
+        int(state.view[0, 0])
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = run_ticks(params, state, sched, seeds, chunk, collect=False)
+            int(state.view[0, 0])
+        return n * (reps * chunk / (time.perf_counter() - t0))
+
+    flat_value = run(None)
+    value = run(world)
+    return {
+        "metric": "member_gossip_rounds_per_sec",
+        "value": value,
+        "unit": "member·rounds/s",
+        "vs_baseline": value / BASELINE_MEMBER_ROUNDS_PER_SEC,
+        "ns_per_member": 1e9 / value,
+        "n_members": n,
+        "engine": "dense-geo",
+        "n_zones": 2,
+        "brownout_latency_ms": 400.0,
+        "flat_value": flat_value,
+        "geo_overhead": flat_value / value,
+    }
+
+
 def measure_persistent_ksweep(
     n: int = 4096, k_max: int = 8, reps: int = 4, slot_budget: int | None = None
 ) -> list[dict]:
@@ -335,12 +391,17 @@ def main(argv) -> int:
     ap.add_argument("--runs", type=int, default=1, help="runs, each from a fresh state")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k-max", type=int, default=8, help="persistent only")
+    ap.add_argument("--geo", type=int, nargs="?", const=1024, default=None, metavar="N",
+                    help="the dense geo-brownout rung at N members (default 1024)")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
         return 2
     meta = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
             "cuda": torch.version.cuda}
+    if args.geo is not None:
+        print(json.dumps({**measure_geo(args.geo), **meta}), flush=True)
+        return 0
     if args.engine == "persistent":
         for row in measure_persistent_ksweep(args.n or 4096, args.k_max,
                                              slot_budget=args.slot_budget):

@@ -62,10 +62,15 @@ AGGR_DEAD_BIT = 2
 def sparse_core_reference(
     slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
     fd_slot, sy_slot, fd_key, sy_key, *, spread, susp_ticks, age_stale, sweep,
+    group=SPARSE_GROUP,
 ):
     """Plain PyTorch version of the fused core; same signature and outputs
     as :func:`sparse_core`: ``(slab2 i32, age2 i8, susp2 i16 [N, S],
     self_rumor [N] i32, aggr [S] i32)``.
+
+    It is also the sparse tick's XLA chain (any n % 8 == 0, any S) where the
+    kernel is not taken: ``group`` is the fan-out's row group (8 when
+    n % 32 != 0) and ``susp_ticks`` may be the knobs' 0-d tensor.
 
     ``slab``/``age`` are the post-load, PRE-point working set: a viewer's
     FD/SYNC point update (``fd_slot``/``sy_slot`` lanes, -1 = none, keys in
@@ -85,7 +90,7 @@ def sparse_core_reference(
     active = (slot_subj >= 0)[None, :]
     payload = torch.where((age0 < spread) & active, local, -1)
 
-    inv = inv_from_structured(ginv, rots, n, SPARSE_GROUP)
+    inv = inv_from_structured(ginv, rots, n, group)
     best_any = torch.full_like(slab, -1)
     best_alive = torch.full_like(slab, -1)
     for c in range(ginv.shape[0]):

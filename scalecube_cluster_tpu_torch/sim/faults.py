@@ -1,5 +1,5 @@
 """Network-fault plan — NetworkEmulator in tensor form
-(port of scalecube_cluster_tpu/sim/faults.py, flat worlds only).
+(port of scalecube_cluster_tpu/sim/faults.py).
 
 Per directed link i→j (NetworkEmulator.java:25-411):
 
@@ -8,28 +8,49 @@ Per directed link i→j (NetworkEmulator.java:25-411):
 - ``mean_delay[i, j]`` — mean of the exponential per-message delay in ms.
 
 A ``[1, 1]`` matrix is the compact "same setting on every link" layout
-(lookups clamp indices into range). The FD probe is the only deadline-bearing
-exchange; it draws ONE in-time sample per probe path from the Erlang tail of
-the summed leg delays (:func:`round_trip_in_time_from`). The reference's
-zone overlay (``link_world``) is not ported: every plan here is a flat world.
+(lookups clamp indices into range). ``link_world`` (sim/topology.py)
+overlays a zone-level topology that every edge lookup composes with. The FD
+probe is the only deadline-bearing exchange; it draws ONE in-time sample per
+probe path from the Erlang tail of the summed leg delays
+(:func:`round_trip_in_time_from`).
+
+Float parity with the reference: XLA:CPU evaluates ``exp`` with the Cephes
+polynomial in fused multiply-adds, contracts ``a * b + c`` into one
+rounding, and divides exactly; torch's ``exp`` and ``scalar / tensor``
+(a reciprocal, then a product) differ in the last bit. Wherever a delay or
+a zone loss can reach a comparison, this module computes in XLA:CPU's steps
+(:func:`fma_f32`, :func:`xla_exp_f32`): each is a fixed sequence of
+correctly rounded elementwise operations, so the card and the CPU give the
+same bits.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import dataclasses
+from dataclasses import dataclass, field
 
 import torch
 
 from scalecube_cluster_tpu_torch import prng
+from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
 
 
 @dataclass
 class FaultPlan:
-    """Per-directed-link fault settings over an N-member cluster."""
+    """Per-directed-link fault settings over an N-member cluster.
+
+    ``delay_free`` is a host-side hint, not part of the plan's value: True
+    when no link (and no zone pair of the world) has a delay, None when not
+    known yet (:func:`plan_delay_free` reads the device once and caches)."""
 
     block: torch.Tensor  # [N, N] (or [1, 1]) bool
     loss: torch.Tensor  # [N, N] (or [1, 1]) float32 in [0, 1)
     mean_delay: torch.Tensor  # [N, N] (or [1, 1]) float32 ms (0 = no delay)
+    link_world: LinkWorld | None = None
+    delay_free: bool | None = field(default=None, compare=False, repr=False)
+
+    def replace(self, **changes) -> "FaultPlan":
+        return dataclasses.replace(self, **changes)
 
     @classmethod
     def clean(cls, n: int, device="cuda") -> "FaultPlan":
@@ -38,6 +59,7 @@ class FaultPlan:
             block=torch.zeros((n, n), dtype=torch.bool, device=device),
             loss=torch.zeros((n, n), dtype=torch.float32, device=device),
             mean_delay=torch.zeros((n, n), dtype=torch.float32, device=device),
+            delay_free=True,
         )
 
     @classmethod
@@ -54,7 +76,115 @@ class FaultPlan:
             mean_delay=torch.full(
                 (1, 1), mean_delay_ms, dtype=torch.float32, device=device
             ),
+            delay_free=float(torch.tensor(mean_delay_ms, dtype=torch.float32)) == 0.0,
         )
+
+    def with_loss(self, percent: float) -> "FaultPlan":
+        """Uniform loss on every link (setDefaultOutboundSettings)."""
+        return self.replace(loss=torch.full_like(self.loss, percent / 100.0))
+
+    def with_mean_delay(self, mean_delay_ms: float) -> "FaultPlan":
+        """Uniform exponential delay on every link."""
+        return self.replace(
+            mean_delay=torch.full_like(self.mean_delay, mean_delay_ms), delay_free=None
+        )
+
+    def _dense_block(self, what: str) -> torch.Tensor:
+        if self.block.shape[0] == 1:
+            raise ValueError(f"{what} need a dense plan (FaultPlan.clean(n))")
+        return self.block.clone()
+
+    def block_outbound(self, src, dst) -> "FaultPlan":
+        """Block link(s) src→dst (blockOutbound, NetworkEmulator.java:87-110)."""
+        block = self._dense_block("per-link blocks")
+        block[_index(src, block), _index(dst, block)] = True
+        return self.replace(block=block)
+
+    def partition(self, group_a, group_b) -> "FaultPlan":
+        """Symmetric partition between two member groups."""
+        block = self._dense_block("partitions")
+        a, b = _index(group_a, block), _index(group_b, block)
+        block[a[:, None], b[None, :]] = True
+        block[b[:, None], a[None, :]] = True
+        return self.replace(block=block)
+
+    def partition_oneway(self, group_a, group_b) -> "FaultPlan":
+        """One-way partition: block a→b links only (B still reaches A)."""
+        block = self._dense_block("partitions")
+        block[_index(group_a, block)[:, None], _index(group_b, block)[None, :]] = True
+        return self.replace(block=block)
+
+    def with_link_world(self, world: LinkWorld | None) -> "FaultPlan":
+        """Attach (or drop, with ``None``) a zone overlay (sim/topology.py)."""
+        return self.replace(link_world=world, delay_free=None)
+
+
+def _index(idx, like: torch.Tensor) -> torch.Tensor:
+    """A member index or index list as an int64 tensor on ``like``'s device
+    (int32 ids wrap as the reference's do)."""
+    t = torch.as_tensor(idx)
+    return t.to(torch.int32).to(device=like.device, dtype=torch.int64)
+
+
+def plan_delay_free(plan: FaultPlan) -> bool:
+    """True when no link of ``plan`` has a delay (so every FD path's miss
+    probability is 0). Cached on the plan: one device read per plan."""
+    if plan.delay_free is None:
+        free = not bool((plan.mean_delay != 0).any())
+        if free and plan.link_world is not None:
+            free = not bool((plan.link_world.latency != 0).any())
+        plan.delay_free = free
+    return plan.delay_free
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` in float32 with one rounding (a fused multiply-add),
+    from correctly rounded float64 steps: the product of two float32 is
+    exact in float64, the sum is rounded to odd (its lost part recovered by
+    TwoSum), and rounding that to float32 is then the single rounding."""
+    p = a.double() * _f64(b, a.device)
+    c64 = _f64(c, a.device)
+    s = p + c64
+    bv = s - p
+    err = (p - (s - bv)) + (c64 - bv)
+    bits = s.view(torch.int64)
+    odd = torch.where((err > 0) == (s > 0), bits + 1, bits - 1)
+    s = torch.where((err != 0) & ((bits & 1) == 0), odd.view(torch.float64), s)
+    return s.float()
+
+
+def _f64(v, device) -> torch.Tensor:
+    """A float32 operand (tensor or constant, constants rounded to float32
+    first) widened to float64."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device).double()
+
+
+#: XLA:CPU's float32 ``exp``: Cephes's range reduction and polynomial.
+_LOG2E = 1.44269504088896341
+_EXP_C1 = -0.693359375
+_EXP_C2 = 2.12194440e-4
+_EXP_POLY = (1.9875691500e-4, 1.3981999507e-3, 8.3334519073e-3, 4.1665795894e-2,
+             1.6666665459e-1, 5.0000001201e-1)
+_F32_MIN_NORMAL = 2.0 ** -126
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``exp(x)`` in float32 bit for bit as XLA:CPU computes it: clamp to
+    [-87.8, 88.8], n = floor(x log2(e) + 1/2) clamped to [-127, 127],
+    r = x - n ln 2 in two fused steps, a degree-5 polynomial in fused
+    multiply-adds, then the product with 2^n; results under the smallest
+    normal flush to 0 (XLA:CPU runs with denormals off)."""
+    x = torch.clamp(x, -87.8, 88.8)
+    n = torch.clamp(torch.floor(fma_f32(x, _LOG2E, 0.5)), -127.0, 127.0)
+    r = fma_f32(n, _EXP_C1, x)
+    r = fma_f32(n, _EXP_C2, r)
+    z = fma_f32(r, _EXP_POLY[0], _EXP_POLY[1])
+    for coef in _EXP_POLY[2:]:
+        z = fma_f32(z, r, coef)
+    z = fma_f32(z, r * r, r) + 1.0
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = z * pow2
+    return torch.where(out.abs() < _F32_MIN_NORMAL, torch.zeros_like(out), out)
 
 
 def _edge_lookup(mat: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
@@ -64,19 +194,45 @@ def _edge_lookup(mat: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
     return mat[s, d]
 
 
+def _zone_pair(world: LinkWorld, mat: torch.Tensor, src, dst) -> torch.Tensor:
+    """``mat[zone[src], zone[dst]]`` for broadcast index tensors."""
+    return mat[world.zone[src.long()].long(), world.zone[dst.long()].long()]
+
+
 def edge_blocked(plan: FaultPlan, src, dst) -> torch.Tensor:
-    """Per-edge hard-block predicate."""
-    return _edge_lookup(plan.block, src, dst)
+    """Per-edge hard-block predicate: the link matrix OR'd with the zone
+    overlay's one-way block when a world is attached."""
+    blocked = _edge_lookup(plan.block, src, dst)
+    if plan.link_world is not None:
+        blocked = blocked | _zone_pair(plan.link_world, plan.link_world.block, src, dst)
+    return blocked
 
 
 def edge_loss(plan: FaultPlan, src, dst) -> torch.Tensor:
-    """Per-edge drop probability."""
-    return _edge_lookup(plan.loss, src, dst)
+    """Per-edge drop probability: with a world, the plan's loss composed
+    with the zone pair's as independent drops, ``1 - (1-p)(1-q)`` (also
+    where q is 0). XLA:CPU fuses the product and the subtraction into one
+    rounding on the engines' edge sets, except on a dense plan's
+    two-relay legs ([N, 2]), which its vectorizer rounds twice; both are
+    reproduced (tests/test_torch_topology.py, ROADMAP Queue C)."""
+    loss = _edge_lookup(plan.loss, src, dst)
+    w = plan.link_world
+    if w is not None:
+        q = _zone_pair(w, w.loss, src, dst)
+        if plan.loss.shape[0] > 1 and loss.dim() == 2 and loss.shape[-1] == 2:
+            loss = 1.0 - (1.0 - loss) * (1.0 - q)
+        else:
+            loss = fma_f32(loss - 1.0, 1.0 - q, 1.0)
+    return loss
 
 
 def edge_mean_delay(plan: FaultPlan, src, dst) -> torch.Tensor:
-    """Per-edge mean exponential delay (ms)."""
-    return _edge_lookup(plan.mean_delay, src, dst)
+    """Per-edge mean exponential delay (ms): plan delay plus the zone
+    pair's latency."""
+    mean = _edge_lookup(plan.mean_delay, src, dst)
+    if plan.link_world is not None:
+        mean = mean + _zone_pair(plan.link_world, plan.link_world.latency, src, dst)
+    return mean
 
 
 def link_pass_from(u: torch.Tensor, plan: FaultPlan, src, dst) -> torch.Tensor:
@@ -99,9 +255,8 @@ def link_delay_within_tick(key, plan: FaultPlan, src, dst, tick_ms) -> torch.Ten
     bins the arrival to tick granularity exactly (the dense engine's
     delayed user gossip)."""
     mean = edge_mean_delay(plan, src, dst)
-    p = torch.where(
-        mean > 0, 1.0 - torch.exp(-tick_ms / torch.clamp_min(mean, 1e-9)), 1.0
-    )
+    ratio = torch.full_like(mean, -tick_ms) / torch.clamp_min(mean, 1e-9)
+    p = torch.where(mean > 0, 1.0 - xla_exp_f32(ratio), 1.0)
     return prng.uniform(key, tuple(mean.shape), mean.device) < p
 
 
@@ -120,17 +275,40 @@ def round_trip_in_time_from(u: torch.Tensor, plan: FaultPlan, legs, deadline_ms)
     ``legs`` (``(src, dst)`` pairs) must beat ``deadline_ms``. Erlang(k)
     with the mean of the leg means:
 
-        P(miss) = e^(-x) * sum_{i<k} x^i / i!,   x = deadline / theta.
-    """
+        P(miss) = e^(-x) * sum_{i<k} x^i / i!,   x = deadline / theta,
+
+    in XLA:CPU's steps: an exact division, the term ``x^i / i!`` as a
+    product with the float32 reciprocal of i and its add fused. On a
+    delay-free plan P(miss) is 0 whatever the bits of the exponential, and
+    the plain torch steps are taken (fewer launches)."""
     k = len(legs)
     mean_total = sum(edge_mean_delay(plan, s, d) for s, d in legs)
     theta = mean_total / k
     has_delay = theta > 0
-    x = deadline_ms / torch.where(has_delay, theta, 1.0)
+    if plan_delay_free(plan):
+        x = deadline_ms / torch.where(has_delay, theta, 1.0)
+        term = torch.ones_like(x)
+        acc = torch.ones_like(x)
+        for i in range(1, k):
+            term = term * x / i
+            acc = acc + term
+        p_miss = torch.where(has_delay, torch.exp(-x) * acc, 0.0)
+        return u >= p_miss
+    x = torch.full_like(theta, deadline_ms) / torch.where(has_delay, theta, 1.0)
     term = torch.ones_like(x)
     acc = torch.ones_like(x)
     for i in range(1, k):
-        term = term * x / i
-        acc = acc + term
-    p_miss = torch.where(has_delay, torch.exp(-x) * acc, 0.0)
+        prod = term * x
+        acc = fma_f32(prod, 1.0 / i, acc)
+        term = prod * torch.tensor(1.0 / i, dtype=torch.float32)
+    p_miss = torch.where(has_delay, xla_exp_f32(-x) * acc, 0.0)
     return u >= p_miss
+
+
+def plan_any_faults(plan: FaultPlan) -> torch.Tensor:
+    """Scalar bool: could this fixed plan disturb any edge? Latency counts
+    as a fault (the whole-plan twin of a schedule's ``seg_dirty``)."""
+    dirty = plan.block.any() | (plan.loss > 0).any() | (plan.mean_delay > 0).any()
+    if plan.link_world is not None:
+        dirty = dirty | plan.link_world.any_faults()
+    return dirty

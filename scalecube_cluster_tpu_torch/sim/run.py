@@ -1,9 +1,13 @@
 """Dense-engine runs with per-tick metric traces
-(port of scalecube_cluster_tpu/sim/run.py over a fixed ``FaultPlan``).
+(port of scalecube_cluster_tpu/sim/run.py).
 
 The reference scans ``sim_tick`` under ``jit``; here a Python loop steps
-the ticks eagerly. Fault schedules and knobs are not ported yet and raise
-``NotImplementedError`` (ROADMAP A8).
+the ticks eagerly. ``plan`` is a fixed :class:`FaultPlan` or a
+:class:`FaultSchedule`, resolved per global tick (sim/schedule.py): the
+segment and the flap phase on the host, the events applied before the tick
+only on ticks whose host table holds one. Scheduled collected traces add
+``plan_dirty``, ``kills_fired``, ``restarts_fired`` and, with a world, the
+``zone_*`` gauges.
 """
 
 from __future__ import annotations
@@ -13,14 +17,79 @@ import torch
 
 from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
 from scalecube_cluster_tpu_torch.sim.params import SimParams
+from scalecube_cluster_tpu_torch.sim.schedule import (
+    FaultSchedule,
+    apply_events_dense,
+    host_events_at,
+    plan_at,
+    plan_dirty_at,
+)
 from scalecube_cluster_tpu_torch.sim.state import SimState
 from scalecube_cluster_tpu_torch.sim.tick import sim_tick
+from scalecube_cluster_tpu_torch.sim.topology import (
+    zone_metrics_from_counts,
+    zone_pair_counts,
+)
+
+
+def check_plan(plan) -> bool:
+    """True for a :class:`FaultSchedule`, False for a :class:`FaultPlan`;
+    anything else raises ``TypeError``."""
+    if isinstance(plan, FaultSchedule):
+        return True
+    if isinstance(plan, FaultPlan):
+        return False
+    raise TypeError(f"plan must be a FaultPlan or a FaultSchedule, got {type(plan).__name__}")
+
+
+def scheduled_inputs(schedule: FaultSchedule, t: int, n: int, device, traces=None):
+    """Global tick ``t``'s plan and ``(kill, restart)`` masks (device
+    tensors; None when the host table holds no event at ``t``), recorded
+    in ``traces`` (a :class:`ScheduleTraces`) when given."""
+    ev = host_events_at(schedule, t, n)
+    if traces is not None:
+        traces.record(t, ev)
+    events = None if ev is None else tuple(torch.from_numpy(m).to(device) for m in ev)
+    return plan_at(schedule, t), events
+
+
+class ScheduleTraces:
+    """The scheduled runners' extra per-tick trace keys, gathered on the
+    host and stacked once per run (the zone gauges' per-viewer counts stay
+    on the device until then)."""
+
+    def __init__(self, schedule: FaultSchedule):
+        self.schedule = schedule
+        self.dirty, self.kills, self.restarts, self.zone_counts = [], [], [], []
+
+    def record(self, t: int, ev) -> None:
+        self.dirty.append(plan_dirty_at(self.schedule, t))
+        self.kills.append(0 if ev is None else int(ev[0].sum()))
+        self.restarts.append(0 if ev is None else int(ev[1].sum()))
+
+    def add_view(self, count_rows) -> None:
+        """Count the zone gauges of this tick's view: ``count_rows(world)``
+        returns the [4, N] per-viewer counts (sim/topology.py)."""
+        if self.schedule.link_world is not None:
+            self.zone_counts.append(count_rows(self.schedule.link_world))
+
+    def finish(self, traces: dict, device) -> dict:
+        traces = dict(traces)
+        traces["plan_dirty"] = torch.tensor(self.dirty, dtype=torch.bool, device=device)
+        traces["kills_fired"] = torch.tensor(self.kills, dtype=torch.int32, device=device)
+        traces["restarts_fired"] = torch.tensor(self.restarts, dtype=torch.int32, device=device)
+        world = self.schedule.link_world
+        if world is not None:
+            counts = torch.stack(self.zone_counts).cpu().numpy()
+            zone = zone_metrics_from_counts(world.zone.cpu().numpy(), world.n_zones, counts)
+            traces.update({k: torch.from_numpy(v).to(device) for k, v in zone.items()})
+        return traces
 
 
 def run_ticks(
     params: SimParams,
     state: SimState,
-    plan: FaultPlan,
+    plan: FaultPlan | FaultSchedule,
     seeds: torch.Tensor,
     n_ticks: int,
     collect: bool = True,
@@ -29,19 +98,33 @@ def run_ticks(
     """Run ``n_ticks`` gossip periods. Returns ``(final_state, traces)``:
     each metric stacked along a leading tick axis, as device tensors.
     ``collect=False`` trims the traces to the tick counter."""
+    scheduled = check_plan(plan)
+    extra = ScheduleTraces(plan) if scheduled and collect else None
     per_tick = []
     for _ in range(n_ticks):
-        state, metrics = sim_tick(params, state, plan, seeds, collect=collect, knobs=knobs)
+        plan_t = plan
+        if scheduled:
+            plan_t, events = scheduled_inputs(
+                plan, state.t_host + 1, params.n, state.device, extra
+            )
+            if events is not None:
+                state = apply_events_dense(state, *events)
+        state, metrics = sim_tick(params, state, plan_t, seeds, collect=collect, knobs=knobs)
+        if extra is not None:
+            extra.add_view(lambda w: zone_pair_counts(w, state.view, state.alive, state.epoch))
         per_tick.append(metrics)
     if not per_tick:
         return state, {}
-    return state, {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]}
+    traces = {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]}
+    if extra is not None:
+        traces = extra.finish(traces, state.device)
+    return state, traces
 
 
 def run_chunked(
     params: SimParams,
     state: SimState,
-    plan: FaultPlan,
+    plan: FaultPlan | FaultSchedule,
     seeds: torch.Tensor,
     n_ticks: int,
     chunk: int = 50,
@@ -51,7 +134,8 @@ def run_chunked(
     """Run ``n_ticks`` in ``chunk``-tick pieces. Returns ``(final_state,
     traces)`` with the traces as numpy arrays trimmed to exactly
     ``n_ticks``; the state advances to the next chunk boundary, as the
-    reference's does (ceil(n_ticks / chunk) · chunk ticks)."""
+    reference's does (ceil(n_ticks / chunk) · chunk ticks). A schedule is
+    keyed by global ticks, so chunking never re-phases it."""
     if chunk <= 0:
         raise ValueError("chunk must be positive")
     if n_ticks <= 0:

@@ -1,7 +1,7 @@
 """Sparse (compact-rumor) SWIM engine on a bounded working set
-(port of scalecube_cluster_tpu/sim/sparse.py — the fused-core path with
-the full four-piece fold, flat fault plans, no scheduled events, no knobs,
-no flight recorder, fixed-shape clusters).
+(port of scalecube_cluster_tpu/sim/sparse.py for fixed-shape clusters:
+fault plans and schedules, knobs, the host ops; the flight recorder and
+elastic membership are ROADMAP A9/A10).
 
 Representation (as in the reference):
 
@@ -14,10 +14,20 @@ Representation (as in the reference):
 - per-member vectors ``inc_self``, ``epoch``, ``alive`` and the [N, G]
   user-gossip arrays.
 
-Per tick: FD probe decision and SYNC exchange (each on its cadence), slot
-grant and slab load, the fused core (ops/sparse_core.py — the CUDA kernel on
-the card, its plain version on the CPU), the window-SYNC apply,
-self-refutation and user gossip.
+Per tick: scheduled events (:func:`apply_events_sparse`), FD probe decision
+and SYNC exchange (each on its cadence), slot grant and slab load, the
+[N, S] core, the window-SYNC apply, self-refutation and user gossip.
+
+The core takes the reference's route: the fused kernel
+(ops/sparse_core.py — csrc/sparse_core.cu on the card, its plain version on
+the CPU) exactly when ``params.pallas_core``, n % 32 == 0, S % 128 == 0
+and S < 4096; otherwise the XLA chain, which is the plain version itself
+(:func:`~scalecube_cluster_tpu_torch.ops.sparse_core.sparse_core_reference`,
+with the 8-row fan-out group when n % 32 != 0) on whichever device the
+state is on. ``pallas_fold`` decides, as in the reference, which per-slot
+aggregates of the kernel the tick consumes (the carried write-back pin mask
+``wb_pinned``/``wb_valid`` and the latency recorder's flags); the protocol
+state is the same on every route.
 
 Control flow differs from the reference only in form, never in result:
 
@@ -48,11 +58,13 @@ import torch
 from scalecube_cluster_tpu_torch import prng
 from scalecube_cluster_tpu_torch.cluster_api.member import MemberStatus
 from scalecube_cluster_tpu_torch.ops.delivery import (
+    GROUP,
     fanout_permutations_structured,
     perm_from_structured,
 )
 from scalecube_cluster_tpu_torch.ops.merge import (
     DEAD_BIT,
+    EPOCH_MAX,
     UNKNOWN_KEY,
     decode_epoch,
     decode_incarnation,
@@ -68,9 +80,10 @@ from scalecube_cluster_tpu_torch.ops.sparse_core import (
     AGGR_DEAD_BIT,
     AGGR_HOLD_BIT,
     AGGR_SUSPECT_BIT,
-    SPARSE_GROUP,
     SLOT_BITS,
+    SPARSE_GROUP,
     sparse_core,
+    sparse_core_reference,
 )
 from scalecube_cluster_tpu_torch.ops.sparse_persistent import FOLD_PIECES
 from scalecube_cluster_tpu_torch.sim.faults import (
@@ -79,8 +92,11 @@ from scalecube_cluster_tpu_torch.sim.faults import (
     link_pass_from,
     round_trip_in_time_from,
 )
+from scalecube_cluster_tpu_torch.sim.knobs import Knobs, edge_live, suspicion_fill
 from scalecube_cluster_tpu_torch.sim.params import SimParams
+from scalecube_cluster_tpu_torch.sim.run import ScheduleTraces, check_plan, scheduled_inputs
 from scalecube_cluster_tpu_torch.sim.state import AGE_STALE
+from scalecube_cluster_tpu_torch.sim.topology import ZONE_ROW_BLOCK, zone_pair_counts
 from scalecube_cluster_tpu_torch.sim.tick import _acct_add, _acct_zero, _link_acct
 from scalecube_cluster_tpu_torch.sim.usergossip import (
     user_gossip_step,
@@ -131,16 +147,11 @@ def slot_budget_for(
 class SparseParams:
     """Static constants: the protocol constants + working-set bounds.
 
-    ``pallas_core`` and ``pallas_fold`` are checkpoint metadata, not
-    switches: the port reads neither and always runs the fused core with
-    the whole fold (on the card the kernel, on the CPU its plain version).
-    Its states equal the reference's under ``pallas_core=True`` and the
-    whole ``pallas_fold``; under other settings the reference's protocol
-    state is the same, but its carried write-back pin mask
-    (``wb_pinned``/``wb_valid``) is not. The two fields exist so params
-    cross packages in a checkpoint and come back unchanged
-    (sim/checkpoint.py); a fold the reference refuses is refused here
-    too."""
+    ``pallas_core`` routes the [N, S] core to the fused kernel where the
+    reference's own gate allows it (module docstring); ``pallas_fold``
+    names the kernel aggregates the tick consumes, and a fold the reference
+    refuses is refused here too. The main path sets ``pallas_core=True``
+    with the whole fold."""
 
     base: SimParams
     #: Max simultaneously active subjects (the slab width S).
@@ -152,9 +163,12 @@ class SparseParams:
     #: False: the tick never touches ``view_T``; frees happen between
     #: chunks in :func:`writeback_free` (the big-n driver).
     in_scan_writeback: bool = True
-    #: The reference's kernel switch and fold pieces: checkpoint metadata
-    #: that the port never reads (see the class docstring).
+    #: Run the [N, S] core as the fused kernel (where n and S allow it).
     pallas_core: bool = False
+    #: Kernel aggregates the tick consumes: 'wb_mask' carries the write-back
+    #: pin mask tick to tick, 'view_rows' feeds the latency recorder;
+    #: 'countdown' and 'points' move work into the kernel in the reference
+    #: and change no value.
     pallas_fold: frozenset = frozenset({"countdown", "points", "wb_mask", "view_rows"})
     #: Bounded-window table SYNC width (0 disables).
     sync_window: int = 64
@@ -180,6 +194,8 @@ class SparseParams:
         alloc_cap: int = 64,
         writeback_period: int = 1,
         in_scan_writeback: bool = True,
+        pallas_core: bool = False,
+        pallas_fold=frozenset({"countdown", "points", "wb_mask", "view_rows"}),
         sync_window: int = 64,
         churn_rate: float = 0.0,
         burst: int = 0,
@@ -203,6 +219,8 @@ class SparseParams:
             alloc_cap=alloc_cap,
             writeback_period=writeback_period,
             in_scan_writeback=in_scan_writeback,
+            pallas_core=pallas_core,
+            pallas_fold=frozenset(pallas_fold),
             sync_window=sync_window,
         )
 
@@ -304,11 +322,202 @@ def inject_gossip_sparse(state: SparseState, node_idx: int, slot: int) -> Sparse
     return state.replace(useen=useen, uage=uage)
 
 
-def kill_sparse(state: SparseState, idx: int) -> SparseState:
-    """Hard-stop process ``idx``."""
+def kill_sparse(state: SparseState, idx) -> SparseState:
+    """Hard-stop process ``idx`` (an index or an index array)."""
     alive = state.alive.clone()
-    alive[idx] = False
+    alive[_members(idx, alive)] = False
     return _invalidate_wb(state).replace(alive=alive)
+
+
+def _members(idx, like: torch.Tensor) -> torch.Tensor:
+    """A member index or index list as an int64 tensor on ``like``'s device."""
+    return torch.as_tensor(np.asarray(idx, np.int64)).to(like.device)
+
+
+def _activate_on_host(state: SparseState, subject: int) -> tuple[SparseState, int]:
+    """Host-side slot allocation for the control-plane ops: load
+    ``subject``'s column into the first free slot unless it is already
+    active. Returns ``(state, slot)``; the slab planes are written in
+    place."""
+    state = _invalidate_wb(state)
+    cur = int(state.subj_slot[subject])
+    if cur >= 0:
+        return state, cur
+    free = torch.nonzero(state.slot_subj < 0).flatten()
+    if free.numel() == 0:
+        raise RuntimeError("slot budget exhausted for host op")
+    s = int(free[0])
+    slot_subj, subj_slot = state.slot_subj.clone(), state.subj_slot.clone()
+    slot_subj[s] = subject
+    subj_slot[subject] = s
+    state.slab[:, s] = state.view_T[subject, :]
+    state.age[:, s] = AGE_STALE
+    state.susp[:, s] = 0
+    return state.replace(slot_subj=slot_subj, subj_slot=subj_slot), s
+
+
+def leave_sparse(state: SparseState, idx: int) -> SparseState:
+    """Graceful leave: self-DEAD at inc+1 rides normal gossip (dense twin:
+    sim/state.py::leave). Consumes ``state`` (slab planes in place)."""
+    state, s = _activate_on_host(state, idx)
+    inc_self = state.inc_self.clone()
+    inc_self[idx] += 1
+    inc = inc_self[idx]
+    state.slab[idx, s] = encode_key(torch.full_like(inc, _DEAD), inc, state.epoch[idx])
+    state.age[idx, s] = 0
+    return state.replace(inc_self=inc_self)
+
+
+def update_metadata_sparse(state: SparseState, idx: int) -> SparseState:
+    """Announce a metadata change at ``idx``: incarnation bump and a fresh
+    young own record (updateIncarnation, ClusterImpl.java:365-369); a
+    voluntary leaver keeps its tombstone. Consumes ``state``."""
+    state, s = _activate_on_host(state, idx)
+    if int(state.slab[idx, s]) & DEAD_BIT:
+        return state
+    inc_self = state.inc_self.clone()
+    inc_self[idx] += 1
+    inc = inc_self[idx]
+    state.slab[idx, s] = encode_key(torch.full_like(inc, _ALIVE), inc, state.epoch[idx])
+    state.age[idx, s] = 0
+    return state.replace(inc_self=inc_self)
+
+
+def restart_sparse(state: SparseState, idx: int) -> SparseState:
+    """Restart ``idx`` as a new identity (epoch bump) with a seed-loaded
+    table: the one-member :func:`restart_many_sparse`."""
+    return restart_many_sparse(state, [idx])
+
+
+def restart_many_sparse(state: SparseState, idxs) -> SparseState:
+    """Restart every member of ``idxs`` as a fresh identity in one pass over
+    the big arrays: epoch + 1, incarnation 0, the first live member's table
+    copied into its view column and slab row, its user gossip cleared and
+    it scrubbed from every suppression ring, then a slot for each (host
+    bookkeeping on the [S]/[N] tables) and its new self record announced
+    young. Raises on duplicate indices, an exhausted epoch budget or a full
+    slot table. Consumes ``state``: ``view_T`` and the slab planes are
+    updated in place."""
+    idx_list = [int(i) for i in np.asarray(idxs).ravel()]
+    if not idx_list:
+        return state
+    state = _invalidate_wb(state)
+    if len(set(idx_list)) != len(idx_list):
+        raise ValueError("duplicate indices in restart_many_sparse")
+    dev = state.device
+    ii = torch.tensor(idx_list, dtype=torch.int64, device=dev)
+    epochs = state.epoch[ii]
+    if int(epochs.max()) >= EPOCH_MAX:
+        raise ValueError(f"a slot in {idx_list} exhausted its {EPOCH_MAX} restart epochs")
+    seed_viewer = int(torch.argmax(state.alive.to(torch.uint8)))
+    new_epochs = epochs + 1
+    zeros = torch.zeros((len(idx_list),), dtype=_I32, device=dev)
+    self_keys = encode_key(zeros + _ALIVE, zeros, new_epochs)
+
+    # 1. Identity resets, one pass over each array.
+    alive, epoch, inc_self = state.alive.clone(), state.epoch.clone(), state.inc_self.clone()
+    alive[ii] = True
+    epoch[ii] = new_epochs
+    inc_self[ii] = 0
+    state.view_T[:, ii] = state.view_T[:, seed_viewer].clone()[:, None]
+    state.slab[ii, :] = state.slab[seed_viewer, :].clone()[None, :]
+    state.age[ii, :] = AGE_STALE
+    state.susp[ii, :] = 0
+    useen, uptr = state.useen.clone(), state.uptr.clone()
+    useen[ii, :] = False
+    uptr[ii] = 0
+    uinf_ids = torch.where(torch.isin(state.uinf_ids, ii.to(_I32)), -1, state.uinf_ids)
+    uinf_ids[ii] = -1
+    state = state.replace(
+        alive=alive, epoch=epoch, inc_self=inc_self, useen=useen, uptr=uptr,
+        uinf_ids=uinf_ids,
+    )
+    if state.lat_first_suspect is not None:
+        lat_s, lat_d = state.lat_first_suspect.clone(), state.lat_first_dead.clone()
+        lat_s[ii] = -1
+        lat_d[ii] = -1
+        state = state.replace(lat_first_suspect=lat_s, lat_first_dead=lat_d)
+
+    # 2. Slot allocation on the host: already-active subjects keep their
+    # slot, the others take the free slots in order.
+    subj_slot = state.subj_slot.cpu().numpy().copy()
+    slot_subj = state.slot_subj.cpu().numpy().copy()
+    slots = np.empty(len(idx_list), np.int64)
+    need_load = []
+    free_iter = iter(np.flatnonzero(slot_subj < 0).tolist())
+    for k, j in enumerate(idx_list):
+        if subj_slot[j] >= 0:
+            slots[k] = subj_slot[j]
+        else:
+            s = next(free_iter, None)
+            if s is None:
+                raise RuntimeError("slot budget exhausted for host op")
+            slots[k] = s
+            subj_slot[j] = s
+            slot_subj[s] = j
+            need_load.append(k)
+    sl = torch.from_numpy(slots).to(dev)
+    state = state.replace(
+        slot_subj=torch.from_numpy(slot_subj).to(dev),
+        subj_slot=torch.from_numpy(subj_slot).to(dev),
+    )
+    if need_load:
+        nl = torch.tensor(need_load, dtype=torch.int64, device=dev)
+        state.slab[:, sl[nl]] = state.view_T[ii[nl], :].T
+        state.age[:, sl[nl]] = AGE_STALE
+        state.susp[:, sl[nl]] = 0
+
+    # 3. Announce the new identities (ALIVE at the new epoch, young).
+    state.slab[ii, sl] = self_keys
+    state.age[ii, sl] = 0
+    return state
+
+
+def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask=None,
+                        join_mask=None) -> SparseState:
+    """Scheduled kill/restart (and, with ``gossip_mask [N, G]``, user-gossip
+    injections) applied before the tick body. Kill is :func:`kill_sparse`.
+    Restart is the reference's fast restart with persistence: the node
+    keeps its table, comes back at epoch + 1 (clamped at EPOCH_MAX) and
+    incarnation 0 with a cold working row (no young record, no armed timer)
+    and no user-gossip state, and announces itself through the tick's slot
+    path. Joins (elastic membership) are ROADMAP A9. Consumes no RNG;
+    masks with no event leave the state as it was."""
+    if join_mask is not None:
+        raise NotImplementedError("join events need elastic states (ROADMAP A9)")
+    n = state.alive.shape[0]
+    fresh = restart_mask
+    any_ev = (kill_mask | fresh).any()
+    if gossip_mask is not None:
+        any_ev = any_ev | gossip_mask.any()
+    new_epoch = torch.where(fresh, torch.clamp_max(state.epoch + 1, EPOCH_MAX), state.epoch)
+    uinf_ids = state.uinf_ids
+    if uinf_ids.shape[2] > 0:
+        hit = (uinf_ids >= 0) & fresh[torch.clamp(uinf_ids, 0, n - 1).long()]
+        uinf_ids = torch.where(hit, -1, uinf_ids)
+        uinf_ids = torch.where(fresh[:, None, None], -1, uinf_ids)
+    st = state.replace(
+        alive=(state.alive & ~kill_mask) | fresh,
+        epoch=new_epoch,
+        inc_self=torch.where(fresh, 0, state.inc_self),
+        age=torch.where(fresh[:, None], torch.tensor(AGE_STALE, dtype=torch.int8), state.age),
+        susp=torch.where(fresh[:, None], torch.tensor(0, dtype=torch.int16), state.susp),
+        useen=torch.where(fresh[:, None], False, state.useen),
+        uptr=torch.where(fresh[:, None], 0, state.uptr),
+        uinf_ids=uinf_ids,
+    )
+    if gossip_mask is not None:
+        st = st.replace(
+            useen=st.useen | gossip_mask, uage=torch.where(gossip_mask, 0, st.uage)
+        )
+    if st.lat_first_suspect is not None:
+        st = st.replace(
+            lat_first_suspect=torch.where(fresh, -1, st.lat_first_suspect),
+            lat_first_dead=torch.where(fresh, -1, st.lat_first_dead),
+        )
+    if st.wb_valid is not None:
+        st = st.replace(wb_valid=st.wb_valid & ~any_ev)
+    return st
 
 
 def _put_drop(vec: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
@@ -363,10 +572,11 @@ def _free_plan(params: SparseParams, state: SparseState):
     """THE slot free rule, shared by the in-tick and host-boundary
     write-backs. A slot stays pinned while any LIVE viewer still has a
     young copy, an armed suspicion, or a DEAD tombstone not yet past the
-    sweep deadline (a subject's own row keeps its tombstone). The kernel
-    carries this mask tick to tick (``wb_pinned``); when ``wb_valid`` is
-    False the rule is recomputed — both are evaluated and selected, the
-    form of the reference's cond. Returns ``freeing [S] bool``."""
+    sweep deadline (a subject's own row keeps its tombstone). Under
+    ``pallas_core`` with the 'wb_mask' fold the kernel carries this mask
+    tick to tick (``wb_pinned``); when ``wb_valid`` is False the rule is
+    recomputed — both are evaluated and selected, the form of the
+    reference's cond. Returns ``freeing [S] bool``."""
     p = params.base
     n = p.n
     col = torch.arange(n, dtype=_I32, device=state.device)
@@ -379,7 +589,7 @@ def _free_plan(params: SparseParams, state: SparseState):
         | (is_dead_key(state.slab) & ~stale_done & ~own_row)
     )
     pinned = (holding & state.alive[:, None]).any(dim=0)
-    if state.wb_pinned is not None:
+    if state.wb_pinned is not None and params.pallas_core and "wb_mask" in params.pallas_fold:
         pinned = torch.where(state.wb_valid, state.wb_pinned, pinned)
     return active & ~pinned
 
@@ -542,22 +752,52 @@ def _sync_zeros(n, W, collect, dev):
 
 
 def sparse_tick(
-    params: SparseParams, state: SparseState, plan: FaultPlan, collect: bool = True
+    params: SparseParams,
+    state: SparseState,
+    plan: FaultPlan,
+    collect: bool = True,
+    events=None,
+    knobs: Knobs | None = None,
 ):
     """One gossip period on the working set. Returns ``(state, metrics)``;
     under ``collect=False`` the metrics are ``{"tick": t}`` only. Consumes
-    ``state`` (see the module docstring)."""
+    ``state`` (see the module docstring).
+
+    ``events`` is None or ``(kill_mask, restart_mask[, gossip_mask])``
+    (:func:`apply_events_sparse`, before the tick body; a restarted node
+    requests its own slot and announces its new identity there).
+    ``knobs`` (sim/knobs.py) need ``pallas_core=False``; identity knobs
+    equal ``knobs=None``."""
     p = params.base
     n, S = p.n, params.slot_budget
     f = p.gossip_fanout
-    dev = state.device
-    if n % SPARSE_GROUP != 0:
+    if n % GROUP != 0:
+        raise ValueError("sparse engine needs n % 8 == 0 (structured fan-out)")
+    if knobs is not None and params.pallas_core:
         raise ValueError(
-            f"the fused core needs n % {SPARSE_GROUP} == 0 (got n={n}); the "
-            "8-row fan-out of other sizes is not ported"
+            "knobs require the XLA tick core: sparse_core_pallas bakes the "
+            "suspicion timeout as a kernel constant (set pallas_core=False)"
         )
-    if S >= 1 << SLOT_BITS:
-        raise ValueError(f"slot_budget={S} must be < {1 << SLOT_BITS}")
+    if not isinstance(plan, FaultPlan):
+        raise TypeError(
+            f"sparse_tick takes one tick's FaultPlan (got {type(plan).__name__}); "
+            "run a FaultSchedule through run_sparse_ticks / run_sparse_chunked"
+        )
+    fresh_m = None
+    if events is not None:
+        if len(events) > 3:
+            raise NotImplementedError("join events need elastic states (ROADMAP A9)")
+        state = apply_events_sparse(state, *events)
+        fresh_m = events[1]
+    dev = state.device
+    # The reference's core route: the fused kernel where its gate holds,
+    # else the XLA chain (the plain core, 8-row groups when n % 32 != 0).
+    group = SPARSE_GROUP if n % SPARSE_GROUP == 0 else GROUP
+    use_kernel = (
+        params.pallas_core and group == SPARSE_GROUP and S % 128 == 0
+        and S < 1 << SLOT_BITS
+    )
+    fold = params.pallas_fold if use_kernel else frozenset()
     t = state.t_host + 1
     rng_next, k_tgt, k_ping, k_relay, k_gsel, k_glink, k_ssel, k_slink = (
         prng.split(state.rng, 8)
@@ -629,6 +869,9 @@ def sparse_tick(
             & (decode_incarnation(self_win) >= state.inc_self)
             & ((st_w == _SUSPECT) | (st_w == _DEAD))
         )
+    if fresh_m is not None:
+        # A restarted node requests its own subject's slot to announce in.
+        req = req | fresh_m
     req = req & (subj_slot < 0)
     cap = params.alloc_cap
     req_rank = torch.cumsum(req.to(_I32), 0, dtype=_I32) - 1
@@ -653,6 +896,15 @@ def sparse_tick(
     load(age, torch.full((n, cap), AGE_STALE, dtype=torch.int8, device=dev))
     load(susp, torch.zeros((n, cap), dtype=torch.int16, device=dev))
     active = slot_subj >= 0
+    if fresh_m is not None:
+        # Restart self-announce: the bumped-epoch ALIVE key, young, in the
+        # node's own cell (part of the event, not a tick verdict).
+        r_fire = fresh_m & (subj_slot >= 0)
+        r_safe = torch.where(r_fire, subj_slot, 0).long()
+        r_key = encode_key(torch.full_like(state.epoch, _ALIVE), torch.zeros_like(state.epoch),
+                           state.epoch)
+        slab[col_l, r_safe] = torch.where(r_fire, r_key, slab[col_l, r_safe])
+        age[col_l, r_safe] = torch.where(r_fire, 0, age[col_l, r_safe]).to(torch.int8)
 
     # ------------------------ 4. FD verdict / SYNC learning point lanes
     slab0, age_pre = slab, age
@@ -662,21 +914,31 @@ def sparse_tick(
     sy_slot = torch.where(sy_accept & (sy_slot >= 0), sy_slot, -1)
 
     # ------------------------------------------ 5. gossip delivery core
-    inv_perm, ginv, rots = fanout_permutations_structured(
-        k_gsel, n, f, dev, group=SPARSE_GROUP
-    )
+    inv_perm, ginv, rots = fanout_permutations_structured(k_gsel, n, f, dev, group=group)
     lks = prng.split(k_glink, f)
     gpass = [
         link_pass_from(prng.uniform(lks[c], (n,), dev), plan, inv_perm[c], col)
         for c in range(f)
     ]
     edge_ok = torch.stack([alive[inv_perm[c].long()] & gpass[c] for c in range(f)])
-    slab2, age, susp, self_rumor, aggr = sparse_core(
-        slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
-        fd_slot, sy_slot, fd_key, sy_key,
-        spread=p.periods_to_spread, susp_ticks=p.suspicion_ticks,
-        age_stale=AGE_STALE, sweep=p.periods_to_sweep,
-    )
+    # Knobs: the fan-out cap folds into edge_ok once (delivery, user
+    # gossip and accounting see one masked world).
+    elive = edge_live(f, knobs)
+    if elive is not None:
+        edge_ok = edge_ok & elive[:, None]
+    susp_fill = suspicion_fill(p.suspicion_ticks, knobs)
+    core_args = (slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
+                 fd_slot, sy_slot, fd_key, sy_key)
+    consts = dict(spread=p.periods_to_spread, susp_ticks=susp_fill,
+                  age_stale=AGE_STALE, sweep=p.periods_to_sweep)
+    if use_kernel:
+        slab2, age, susp, self_rumor, aggr = sparse_core(*core_args, **consts)
+    else:
+        slab2, age, susp, self_rumor, aggr = sparse_core_reference(
+            *core_args, **consts, group=group
+        )
+    # Per-slot aggregates (what the 'wb_mask' / 'view_rows' folds consume),
+    # plus the corrections of the post-core steps below.
     pin_k = ((aggr >> AGGR_HOLD_BIT) & 1).bool()
     seen_s = ((aggr >> AGGR_SUSPECT_BIT) & 1).bool()
     seen_d = ((aggr >> AGGR_DEAD_BIT) & 1).bool()
@@ -698,7 +960,7 @@ def sparse_tick(
         new_age = torch.where(app, 0, age[:, safe])
         new_susp = torch.where(
             app,
-            torch.where(is_suspect_key(new), p.suspicion_ticks, 0),
+            torch.where(is_suspect_key(new), susp_fill, 0),
             susp[:, safe].to(_I32),
         )
         put = _column_writer(safe, route, S)
@@ -742,12 +1004,12 @@ def sparse_tick(
         new_seen, uage, uinf_ids, uptr, msgs_user = user_gossip_step_tracked(
             state.useen, state.uage, state.uinf_ids, state.uptr, inv_perm,
             edge_ok, alive, p.periods_to_spread, p.periods_to_sweep,
-            perm=perm_from_structured(ginv, rots, n, group=SPARSE_GROUP),
+            perm=perm_from_structured(ginv, rots, n, group=group), edge_live=elive,
         )
     else:
         new_seen, uage, msgs_user = user_gossip_step(
             state.useen, state.uage, inv_perm, edge_ok, alive,
-            p.periods_to_spread, p.periods_to_sweep,
+            p.periods_to_spread, p.periods_to_sweep, edge_live=elive,
         )
         uinf_ids, uptr = state.uinf_ids, state.uptr
 
@@ -755,6 +1017,9 @@ def sparse_tick(
     tick = state.tick + 1
     lat_s, lat_d = state.lat_first_suspect, state.lat_first_dead
     if lat_s is not None:
+        if "view_rows" not in fold:
+            seen_s = (is_suspect_key(slab2) & alive[:, None]).any(dim=0)
+            seen_d = (is_dead_key(slab2) & alive[:, None]).any(dim=0)
         subj_safe = torch.clamp(slot_subj, 0, n - 1).long()
         first_s = seen_s & active & (lat_s[subj_safe] < 0)
         first_d = seen_d & active & (lat_d[subj_safe] < 0)
@@ -762,6 +1027,9 @@ def sparse_tick(
         lat_s = _put_drop(lat_s, torch.where(first_s, slot_subj, n), t_vec)
         lat_d = _put_drop(lat_d, torch.where(first_d, slot_subj, n), t_vec)
 
+    # The pin mask is carried only under the 'wb_mask' fold; else it is
+    # flagged stale and the next free decision recomputes it.
+    carry = state.wb_pinned is not None and "wb_mask" in fold
     new_state = state.replace(
         slot_subj=slot_subj,
         subj_slot=subj_slot,
@@ -778,8 +1046,8 @@ def sparse_tick(
         t_host=t,
         lat_first_suspect=lat_s,
         lat_first_dead=lat_d,
-        wb_pinned=None if state.wb_pinned is None else pin_k | pin_extra,
-        wb_valid=None if state.wb_valid is None else torch.ones_like(state.wb_valid),
+        wb_pinned=pin_k | pin_extra if carry else state.wb_pinned,
+        wb_valid=None if state.wb_valid is None else torch.full_like(state.wb_valid, carry),
     )
     if not collect:
         return new_state, {"tick": tick}
@@ -800,6 +1068,8 @@ def sparse_tick(
     for c in range(f):
         src = inv_perm[c].long()
         att = sender_active[src] & alive[src] & (inv_perm[c] != col)
+        if elive is not None:
+            att = att & elive[c]
         g_att.append(att)
         g_acct = _acct_add(
             g_acct, _link_acct(att, edge_blocked(plan, inv_perm[c], col), gpass[c])
@@ -861,23 +1131,55 @@ def sparse_tick(
 def run_sparse_ticks(
     params: SparseParams,
     state: SparseState,
-    plan: FaultPlan,
+    plan,
     n_ticks: int,
     collect: bool = True,
+    knobs: Knobs | None = None,
 ):
     """Run ``n_ticks`` ticks. Returns ``(state, traces)``: per-key device
-    tensors stacked along a leading tick axis. With
-    ``params.in_scan_writeback=False`` it never frees slots — use
-    :func:`run_sparse_chunked` or call :func:`writeback_free` between runs.
-    Consumes ``state``."""
+    tensors stacked along a leading tick axis. ``plan`` is a
+    :class:`FaultPlan` or a :class:`FaultSchedule` resolved per global tick
+    (sim/schedule.py); scheduled collected traces add ``plan_dirty``,
+    ``kills_fired``, ``restarts_fired`` and, with a world, the ``zone_*``
+    gauges. With ``params.in_scan_writeback=False`` it never frees slots —
+    use :func:`run_sparse_chunked` or call :func:`writeback_free` between
+    runs. Consumes ``state``."""
+    scheduled = check_plan(plan)
+    extra = ScheduleTraces(plan) if scheduled and collect else None
     per_tick = []
     for _ in range(n_ticks):
-        state, metrics = sparse_tick(params, state, plan, collect=collect)
+        plan_t, events = plan, None
+        if scheduled:
+            plan_t, events = scheduled_inputs(
+                plan, state.t_host + 1, params.base.n, state.device, extra
+            )
+        state, metrics = sparse_tick(
+            params, state, plan_t, collect=collect, events=events, knobs=knobs
+        )
+        if extra is not None:
+            extra.add_view(lambda w: _zone_counts(w, state))
         per_tick.append(metrics)
     if not per_tick:
         return state, {}
     traces = {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]}
+    if extra is not None:
+        traces = extra.finish(traces, state.device)
     return state, traces
+
+
+def _zone_counts(world, state: SparseState) -> torch.Tensor:
+    """The zone gauges' per-viewer counts of :func:`effective_view`, built
+    in blocks of viewer rows so no [N, N] view is materialised."""
+    n = state.alive.shape[0]
+    s = state.subj_slot
+    loaded = (s >= 0)[None, :]
+    safe = torch.clamp_min(s, 0).long()
+    parts = []
+    for r0 in range(0, n, ZONE_ROW_BLOCK):
+        r1 = min(n, r0 + ZONE_ROW_BLOCK)
+        rows = torch.where(loaded, state.slab[r0:r1][:, safe], state.view_T[:, r0:r1].T)
+        parts.append(zone_pair_counts(world, rows, state.alive, state.epoch, row0=r0))
+    return torch.cat(parts, dim=1)
 
 
 def writeback_free(params: SparseParams, state: SparseState) -> SparseState:
@@ -894,21 +1196,23 @@ def writeback_free(params: SparseParams, state: SparseState) -> SparseState:
 def run_sparse_chunked(
     params: SparseParams,
     state: SparseState,
-    plan: FaultPlan,
+    plan,
     n_ticks: int,
     chunk: int = 48,
     collect: bool = True,
+    knobs: Knobs | None = None,
 ):
     """Run in chunks with host-boundary slot frees between them (the big-n
     driver; requires ``in_scan_writeback=False``). Returns ``(state,
     traces)`` with traces as numpy arrays, leading axis ``n_ticks``;
-    ``{}`` under ``collect=False``."""
+    ``{}`` under ``collect=False``. A :class:`FaultSchedule` is keyed by
+    global ticks, so chunk boundaries never re-phase it."""
     if params.in_scan_writeback:
         raise ValueError("use in_scan_writeback=False with the chunked runner")
     whole, tail = divmod(n_ticks, chunk)
     pieces = []
     for length in [chunk] * whole + ([tail] if tail else []):
-        state, tr = run_sparse_ticks(params, state, plan, length, collect=collect)
+        state, tr = run_sparse_ticks(params, state, plan, length, collect=collect, knobs=knobs)
         state = writeback_free(params, state)
         if collect:
             pieces.append({k: v.cpu().numpy() for k, v in tr.items()})

@@ -1,5 +1,5 @@
 """``sim_tick`` — one gossip period of the dense N-member engine
-(port of scalecube_cluster_tpu/sim/tick.py, flat fault plans, no knobs).
+(port of scalecube_cluster_tpu/sim/tick.py).
 
 Per tick, as in the reference: the FD probe round on its cadence
 (:func:`_fd_vectors`), the structured gossip fan-out and its link draws,
@@ -64,6 +64,7 @@ from scalecube_cluster_tpu_torch.sim.faults import (
     link_pass,
     round_trip_in_time,
 )
+from scalecube_cluster_tpu_torch.sim.knobs import Knobs, edge_live, suspicion_fill
 from scalecube_cluster_tpu_torch.sim.params import SimParams
 from scalecube_cluster_tpu_torch.sim.state import AGE_STALE, SimState
 from scalecube_cluster_tpu_torch.sim.usergossip import AGE_CAP, user_gossip_step
@@ -237,9 +238,10 @@ def _fd_skip(n, collect, dev):
 
 
 def _core_xla(params, state, plan, seeds, keys, fd_tgtm, fd_key, inv_perm, edge_ok,
-              joining, do_sync_tick, with_sync, collect):
+              joining, do_sync_tick, with_sync, collect, susp_fill):
     """The unfused core (the reference's XLA chain); ``with_sync`` folds
-    the SYNC exchange in. Returns ``(view2, rumor_age, suspect_left,
+    the SYNC exchange in; ``susp_fill`` is the countdown a fresh suspicion
+    arms (sim/knobs.py). Returns ``(view2, rumor_age, suspect_left,
     rows_next, known_cnt, self_rumor, msgs_sync, sync_acct [4])``."""
     n = params.n
     view0, alive = state.view, state.alive
@@ -324,7 +326,7 @@ def _core_xla(params, state, plan, seeds, keys, fd_tgtm, fd_key, inv_perm, edge_
     view2 = torch.where(tomb, UNKNOWN_KEY, view2)
     is_susp = ((view2 & 1) != 0) & ((view2 & DEAD_BIT) == 0) & (view2 >= 0)
     suspect_left = torch.where(
-        is_susp, torch.where(rearm | ~armed, params.suspicion_ticks, left0), 0
+        is_susp, torch.where(rearm | ~armed, susp_fill, left0), 0
     ).to(torch.int16)
     suspect_left = torch.where(alive[:, None], suspect_left, state.suspect_left)
     rows_next = torch.where(rumor_age < params.periods_to_spread, view2, UNKNOWN_KEY)
@@ -335,11 +337,11 @@ def _core_xla(params, state, plan, seeds, keys, fd_tgtm, fd_key, inv_perm, edge_
     )
 
 
-def _user_gossip_tracked(params, state, plan, k_glink, inv_perm, edge_ok, nonself):
+def _user_gossip_tracked(params, state, plan, k_glink, inv_perm, edge_ok, nonself, elive):
     """Tracked user gossip with exact [N, N, G] infected sets and, under
     ``gossip_delay_model``, the in-flight ledger (test scale only: the
-    [f, N, N] one-hots). Returns ``(new_seen, uage, uinf, uflight,
-    msgs_user)``."""
+    [f, N, N] one-hots); ``elive`` is the knobs' channel mask or None.
+    Returns ``(new_seen, uage, uinf, uflight, msgs_user)``."""
     n, f = params.n, params.gossip_fanout
     dev = state.device
     col = torch.arange(n, dtype=_I32, device=dev)
@@ -349,7 +351,10 @@ def _user_gossip_tracked(params, state, plan, k_glink, inv_perm, edge_ok, nonsel
     for c in range(f):
         s = inv_perm[c].long()
         known = state.uinf[s, col.long()]  # [N, G]: sender s knows receiver j has g
-        sent_cols.append(urows[s] & ~known & (alive[s] & nonself[c])[:, None])
+        sent_c = urows[s] & ~known & (alive[s] & nonself[c])[:, None]
+        if elive is not None:
+            sent_c = sent_c & elive[c]
+        sent_cols.append(sent_c)
     got = torch.zeros_like(urows)
     uinf_new = state.uinf
     uflight = state.uflight
@@ -393,20 +398,25 @@ def sim_tick(
     plan: FaultPlan,
     seeds: torch.Tensor,
     collect: bool = True,
-    knobs=None,
+    knobs: Knobs | None = None,
 ):
     """Advance the cluster one gossip period. Returns ``(new_state,
     metrics)``; under ``collect=False`` the metrics are ``{"tick": t}``.
 
     ``seeds`` is the ``[N]`` bool seed mask (always eligible SYNC partners).
-    Per-run ``knobs`` and fault schedules are not ported yet and raise
-    ``NotImplementedError``."""
+    ``plan`` is this tick's :class:`FaultPlan` (sim/run.py resolves a
+    schedule per tick). ``knobs`` (sim/knobs.py) need
+    ``pallas_delivery=False``; identity knobs equal ``knobs=None``."""
     n = params.n
-    if knobs is not None:
-        raise NotImplementedError("knobs are not ported yet (ROADMAP A8)")
+    if knobs is not None and params.pallas_delivery:
+        raise ValueError(
+            "knobs require the XLA tick core: tick_core_pallas bakes the "
+            "suspicion timeout as a kernel constant (set pallas_delivery=False)"
+        )
     if not isinstance(plan, FaultPlan):
-        raise NotImplementedError(
-            f"only a fixed FaultPlan is ported (got {type(plan).__name__}; ROADMAP A8)"
+        raise TypeError(
+            f"sim_tick takes one tick's FaultPlan (got {type(plan).__name__}); "
+            "run a FaultSchedule through sim/run.py"
         )
     if params.track_user_infected and state.uinf.shape[1] != n:
         raise ValueError(
@@ -454,6 +464,12 @@ def sim_tick(
     lks = prng.split(k_glink, f)
     gpass = [link_pass(lks[c], plan, inv_perm[c], col) for c in range(f)]
     edge_ok = torch.stack([alive[inv_perm[c].long()] & gpass[c] for c in range(f)])
+    # Knobs: the fan-out cap folds into edge_ok once, so delivery, user
+    # gossip and the accounting see the same masked world.
+    elive = edge_live(f, knobs)
+    if elive is not None:
+        edge_ok = edge_ok & elive[:, None]
+    susp_fill = suspicion_fill(params.suspicion_ticks, knobs)
 
     # ------------------------------------------------------ 2+4. tick core
     need_slow = do_sync_tick or bool(joining.any())
@@ -471,7 +487,7 @@ def sim_tick(
         (view2, rumor_age, suspect_left, rows_next, known_cnt, self_rumor,
          msgs_sync, sync_acct) = _core_xla(
             params, state, plan, seeds, (k_ssel, k_slink), fd_tgtm, fd_key,
-            inv_perm, edge_ok, joining, do_sync_tick, need_slow, collect,
+            inv_perm, edge_ok, joining, do_sync_tick, need_slow, collect, susp_fill,
         )
 
     # --------------------------------------------------- 5. self-refutation
@@ -497,12 +513,12 @@ def sim_tick(
     nonself = inv_perm != col[None, :]
     if params.track_user_infected:
         new_seen, uage, uinf_new, uflight, msgs_user = _user_gossip_tracked(
-            params, state, plan, k_glink, inv_perm, edge_ok, nonself
+            params, state, plan, k_glink, inv_perm, edge_ok, nonself, elive
         )
     else:
         new_seen, uage, msgs_user = user_gossip_step(
             state.useen, state.uage, inv_perm, edge_ok, alive,
-            params.periods_to_spread, params.periods_to_sweep,
+            params.periods_to_spread, params.periods_to_sweep, edge_live=elive,
         )
         uinf_new, uflight = state.uinf, state.uflight
 
@@ -545,6 +561,8 @@ def sim_tick(
         sender_active[inv_perm[c].long()] & alive[inv_perm[c].long()] & nonself[c]
         for c in range(f)
     ]
+    if elive is not None:
+        g_att_c = [m & elive[c] for c, m in enumerate(g_att_c)]
     msgs_gossip = sum(_count(m) for m in g_att_c)
     g_acct = _acct_zero(dev)
     for c in range(f):

@@ -41,9 +41,11 @@ def ring_record(uinf_ids, uptr, arrived, sid):
     return uinf_ids, uptr + arrived.to(torch.int32)
 
 
-def user_gossip_step(useen, uage, inv_perm, edge_ok, alive, spread, sweep):
+def user_gossip_step(useen, uage, inv_perm, edge_ok, alive, spread, sweep, edge_live=None):
     """Untracked period. Returns ``(new_seen, new_age, msgs_user [G])`` —
-    sender-side message counts (loss does not unsend)."""
+    sender-side message counts (loss does not unsend). ``edge_live`` (the
+    ``[f]`` bool fan-out cap of sim/knobs.py) takes capped channels out of
+    the count; the caller has already folded it into ``edge_ok``."""
     n = useen.shape[0]
     col = torch.arange(n, dtype=torch.int32, device=useen.device)
     nonself = inv_perm != col[None, :]
@@ -53,17 +55,22 @@ def user_gossip_step(useen, uage, inv_perm, edge_ok, alive, spread, sweep):
     for c in range(inv_perm.shape[0]):
         src = inv_perm[c].long()
         sent = urows[src] & (alive[src] & nonself[c])[:, None]
+        if edge_live is not None:
+            sent = sent & edge_live[c]
         msgs_user = msgs_user + sent.sum(dim=0, dtype=torch.int32)
     seen, new_age, _ = user_gossip_finish(useen, uage, got & alive[:, None], sweep)
     return seen, new_age, msgs_user
 
 
 def user_gossip_step_tracked(
-    useen, uage, uinf_ids, uptr, inv_perm, edge_ok, alive, spread, sweep, perm
+    useen, uage, uinf_ids, uptr, inv_perm, edge_ok, alive, spread, sweep, perm,
+    edge_live=None,
 ):
     """Tracked period with last-k-senders suppression: sender i skips slot g
     toward target ``perm[c, i]`` when its ring already names that target.
-    ``perm`` is the forward fan-out (ops/delivery.py::perm_from_structured).
+    ``perm`` is the forward fan-out (ops/delivery.py::perm_from_structured);
+    ``edge_live`` as in :func:`user_gossip_step` (a capped channel sends
+    nothing).
 
     Returns ``(new_seen, new_age, uinf_ids, uptr, msgs_user [G])``.
     """
@@ -77,6 +84,8 @@ def user_gossip_step_tracked(
         tgt = perm[c]
         known = (uinf_ids == tgt[:, None, None]).any(dim=2)
         s_c = urows & ~known & (alive & (tgt != col))[:, None]
+        if edge_live is not None:
+            s_c = s_c & edge_live[c]
         sent_s.append(s_c)
         msgs_user = msgs_user + s_c.sum(dim=0, dtype=torch.int32)
     got = torch.zeros_like(urows)

@@ -335,16 +335,17 @@ def test_unstructured_fanout_trajectory_matches_jax():
 
 
 def test_unported_options_raise():
-    """knobs and fault schedules are not ported (ROADMAP A8); a tracked
-    run needs a tracked state."""
+    """Knobs with the fused core raise as the reference's do, a plan that is
+    neither a FaultPlan nor a FaultSchedule is refused, and a tracked run
+    needs a tracked state."""
     n = 64
     _, tp = params(n, True)
     st = TS.init_full_view(n, device="cpu")
     seeds = TS.seeds_mask(n, [0], device="cpu")
     plan = TPlan.uniform(0.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="knobs"):
+    with pytest.raises(ValueError, match="knobs require the XLA tick core"):
         sim_tick(tp, st, plan, seeds, knobs=object())
-    with pytest.raises(NotImplementedError, match="FaultPlan"):
+    with pytest.raises(TypeError, match="FaultPlan"):
         T.run_ticks(tp, st, object(), seeds, 1)
     tracked = dataclasses.replace(tp, track_user_infected=True)
     with pytest.raises(ValueError, match="track_infected"):

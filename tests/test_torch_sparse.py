@@ -26,13 +26,16 @@ from tests.test_sparse import sparse_params
 
 
 def port_params(jp):
-    """The port's SparseParams for a JAX SparseParams (same constants)."""
+    """The port's SparseParams for a JAX SparseParams (same constants, the
+    same core route and fold)."""
     return T.SparseParams(
         base=TSimParams(**dataclasses.asdict(jp.base)),
         slot_budget=jp.slot_budget,
         alloc_cap=jp.alloc_cap,
         writeback_period=jp.writeback_period,
         in_scan_writeback=jp.in_scan_writeback,
+        pallas_core=jp.pallas_core,
+        pallas_fold=jp.pallas_fold,
         sync_window=jp.sync_window,
     )
 
@@ -160,3 +163,49 @@ def test_mid_run_start_matches_jax():
     ts = sparse_state_from_numpy(snaps[1][0], device="cpu")
     assert ts.t_host == 20
     _continue_port(jp, chunk, ts, snaps[2:], collect=True)
+
+
+#: The core routes of the reference's ``use_kernel`` gate, and fold subsets
+#: of the kernel route (the carried pin mask and the recorder flags each
+#: follow their fold piece): (n, S, pallas_core, pallas_fold).
+ROUTES = {
+    "chain-group8": (40, 128, False, None),
+    "gate-n%32": (48, 128, True, None),
+    "gate-S%128": (64, 100, True, None),
+    "gate-S>=4096": (16, 4096, True, None),
+    "fold-none": (64, 128, True, frozenset()),
+    "fold-countdown": (64, 128, True, frozenset({"countdown"})),
+    "fold-points": (64, 128, True, frozenset({"countdown", "points"})),
+    "fold-wb_mask": (64, 128, True, frozenset({"countdown", "wb_mask"})),
+    "fold-view_rows": (64, 128, True, frozenset({"countdown", "view_rows"})),
+}
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_core_routes_and_folds_match_jax(route):
+    """The XLA chain where the reference's gate refuses the kernel (n % 32
+    != 0 with 8-row fan-out groups, S % 128 != 0, S >= 4096, or
+    ``pallas_core=False``) and the kernel route under fold subsets: 36
+    ticks in chunks of 12 (FD every 2, suspicion 12, 10% loss, a kill, the
+    latency recorder on), every state leaf (``wb_pinned``/``wb_valid``
+    included) and counter equal after every chunk; then a
+    ``writeback_free`` consumes or recomputes the carried mask."""
+    n, S, pallas, fold = ROUTES[route]
+    jp = dataclasses.replace(
+        sparse_params(n, suspicion_ticks=12), slot_budget=S, in_scan_writeback=False,
+        pallas_core=pallas,
+        **({} if fold is None else {"pallas_fold": fold}),
+    )
+    js = J.kill_sparse(J.init_sparse_full_view(n, S, record_latency=True), 5)
+    ts = T.kill_sparse(
+        T.init_sparse_full_view(n, S, user_gossip_slots=4, record_latency=True, device="cpu"), 5
+    )
+    tp = port_params(jp)
+    jplan, tplan = JPlan.uniform(10.0), TPlan.uniform(10.0, device="cpu")
+    for c in range(3):
+        js, jtr = J.run_sparse_ticks(jp, js, jplan, 12)
+        ts, ttr = T.run_sparse_ticks(tp, ts, tplan, 12)
+        assert_same_state(js, ts, f"chunk {c}")
+        assert_same_traces(jtr, {k: v.numpy() for k, v in ttr.items()}, f"chunk {c}")
+        js, ts = J.writeback_free(jp, js), T.writeback_free(tp, ts)
+        assert_same_state(js, ts, f"free {c}")
