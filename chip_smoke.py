@@ -100,7 +100,29 @@ Phases, each of which must pass (any failure exits non-zero):
     then the partition-recovery cut (30% minority), then 5% loss; member 7
     killed at tick 5 and restarted at tick 120; the kernel launched on every
     tick the tick takes its fast path; then the ``--geo 10240`` bench row;
-18. the kernel table as one JSON line, the card's name and power limit,
+18. the flight recorder and elastic membership, card vs CPU at n=1024,
+    S=256: a traced 60-tick churn timeline on the XLA chain (kills, a
+    restart, 5% loss, a 2-zone brownout; host kills and restarts between
+    chunks) — every state leaf, trace and ring field equal, no kernel
+    launch; an elastic run (896 of 1024 live, the 128 capacity rows joined
+    8 a tick) on the kernel route, ``promote_sparse_state`` to 2048 and 48
+    more ticks joining 16 promoted rows, and a packed elastic checkpoint
+    round trip — equal on both devices, ``sparse_core`` launched on the
+    ticks the CPU run routes to it;
+19. the elastic path at the sparse width: ``init_sparse_full_view(30720,
+    512, n_alloc=32768)``, the main path's params, 5% loss, a kill, the
+    2,048 capacity rows joined in 32 batches of 64 every 6 ticks from tick
+    10, five collected 48-tick chunks (``sparse_core`` on every tick,
+    ``n_live`` 30,720 → 32,768, ``joins_admitted`` 2,048), then
+    ``promote_sparse_state`` to 65,536 and one collected chunk joining 64
+    promoted rows; ms/tick before and after, the promotion's wall time and
+    the peak device memory;
+20. the flight recorder at the sparse width: the ``--tracer-overhead
+    32768`` rung at S=512 (XLA chain, ring 1 << 19), the synchronising CUDA
+    calls of one traced and one untraced chunk (the traced one makes no
+    more), and a 528-tick run with a 1 << 27 ring whose decoded chains pass
+    the C6 walk, every DEAD verdict's chain ending at a probe;
+21. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
@@ -1472,6 +1494,362 @@ def phase_dense_timeline(torch):
                                  "peak_gib": peak_gib, "geo": geo}
 
 
+def _flat_state(state):
+    """A sparse state as flat numpy arrays, the recorder's ring fields as
+    ``trace.<field>`` (copies: the tick consumes its state)."""
+    from scalecube_cluster_tpu_torch.sim.convert import sparse_state_to_numpy
+
+    flat = sparse_state_to_numpy(state)
+    ring = flat.pop("trace", None)
+    if ring is not None:
+        flat.update({f"trace.{k}": v for k, v in ring.items()})
+    return flat
+
+
+def _compare_runs(tag, card, cpu):
+    """Every leaf and trace key of two lists of (flat state, traces)."""
+    import numpy as np
+
+    for c, ((a, ta), (b, tb)) in enumerate(zip(card, cpu)):
+        if set(a) != set(b) or set(ta or {}) != set(tb or {}):
+            fail(f"{tag}: leaf or trace sets differ at step {c}")
+        for k in a:
+            if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]):
+                fail(f"{tag}: state leaf {k} differs after step {c}")
+        for k in ta or {}:
+            if not np.array_equal(np.asarray(ta[k]).view(np.uint8),
+                                  np.asarray(tb[k]).view(np.uint8)):
+                fail(f"{tag}: trace {k} differs in step {c}")
+
+
+def _churn_timeline(n, device):
+    """Phase 18's traced timeline: 5% loss; the same under a 2-zone 400 ms
+    brownout from tick 13; 5% loss from tick 37; kills at ticks 3 and 5, a
+    restart at 25."""
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+    from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
+
+    return (
+        ScheduleBuilder(n)
+        .add_segment(1, FaultPlan.uniform(5.0, device=device))
+        .add_segment(13, FaultPlan.uniform(5.0, device=device),
+                     link_world=LinkWorld.even_zones(n, 2, device=device)
+                     .with_zone_latency(0, 1, 400.0))
+        .add_segment(37, FaultPlan.uniform(5.0, device=device))
+        .kill(3, 7).kill(5, n // 2).restart(25, 7)
+        .build()
+    )
+
+
+def _elastic_timeline(n_alloc, rows, device, first, every, batch, kill=None):
+    """5% uniform loss over ``n_alloc`` members; the capacity ``rows``
+    joined ``batch`` at a time, one batch every ``every`` ticks from tick
+    ``first``; member ``kill`` killed at tick 5 when given."""
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+
+    b = ScheduleBuilder(n_alloc).add_segment(1, FaultPlan.uniform(5.0, device=device))
+    if kill is not None:
+        b = b.kill(5, kill)
+    for k, j in enumerate(rows):
+        b = b.join(first + every * (k // batch), j)
+    return b.build()
+
+
+def phase_recorder_elastic_card_vs_cpu(torch):
+    """Phase 18: the traced XLA chain, an elastic run on the kernel route,
+    a promotion and an elastic packed checkpoint, card == CPU at small n."""
+    import io
+
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.sim import checkpoint as ckpt
+    from scalecube_cluster_tpu_torch.sim import sparse as sparse_mod
+
+    n, s, chunk, ticks = 1024, 256, 12, 60
+    # (a) The flight recorder on the XLA chain, host kills and restarts
+    # between chunks.
+    params = dataclasses.replace(_fold_params(n, s), pallas_core=False)
+    runs, route = {}, {}
+    for dev in ("cuda", "cpu"):
+        sched = _churn_timeline(n, dev)
+        st = sparse_mod.init_sparse_full_view(n, s, user_gossip_slots=2, trace_capacity=1 << 19,
+                                              device=dev)
+        out = []
+        launches0 = sparse_core.launches
+        with _RouteCounter(sparse_mod, "sparse_core") as counter:
+            for c in range(ticks // chunk):
+                st, tr = sparse_mod.run_sparse_chunked(params, st, sched, chunk, chunk=chunk)
+                out.append((_flat_state(st), tr))
+                if c == 1:
+                    st = sparse_mod.kill_sparse(st, 100)
+                if c == 2:
+                    st = sparse_mod.restart_many_sparse(st, [100, 3])
+        runs[dev] = out
+        route[dev] = (counter.calls, sparse_core.launches - launches0)
+    _compare_runs("[18] traced XLA chain", runs["cuda"], runs["cpu"])
+    if route != {"cuda": (0, 0), "cpu": (0, 0)}:
+        fail(f"[18] the traced run took the kernel route: {route}")
+    final = runs["cuda"][-1][0]
+    say(f"[18] traced XLA chain n={n} S={s}: card == CPU over {ticks} ticks ({len(final)} "
+        f"leaves with the ring's 10 fields); {int(final['trace.cursor'])} events recorded, "
+        f"overflow {int(final['trace.overflow'])}, verdicts_dead "
+        f"{sum(int(tr['verdicts_dead'].sum()) for _, tr in runs['cuda'])}")
+    if int(final["trace.overflow"]) != 0 or int(final["trace.cursor"]) == 0:
+        fail("[18] the ring overflowed or recorded nothing")
+
+    # (b) Elastic on the kernel route: 896 live of 1024, the 128 capacity
+    # rows joined 8 a tick from tick 2; (c) promotion to 2048 and 48 more
+    # ticks joining 16 of the new rows; (d) a packed elastic checkpoint.
+    n_live, n2 = 896, 2 * n
+    params = _fold_params(n, s)
+    runs, route, promoted = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        sched = _elastic_timeline(n, range(n_live, n), dev, first=2, every=1, batch=8, kill=9)
+        st = sparse_mod.init_sparse_full_view(n_live, s, user_gossip_slots=2, n_alloc=n,
+                                              device=dev)
+        out = []
+        launches0 = sparse_core.launches
+        with _RouteCounter(sparse_mod, "sparse_core") as counter:
+            for _ in range(ticks // chunk):
+                st, tr = sparse_mod.run_sparse_chunked(params, st, sched, chunk, chunk=chunk)
+                out.append((_flat_state(st), tr))
+            t0 = time.perf_counter()
+            params2, st = ckpt.promote_sparse_state(params, st, n2)
+            out.append((_flat_state(st), None))
+            promoted[dev] = time.perf_counter() - t0
+            sched2 = _elastic_timeline(n2, range(n, n + 16), dev, first=st.t_host + 2,
+                                       every=2, batch=4)
+            for _ in range(48 // chunk):
+                st, tr = sparse_mod.run_sparse_chunked(params2, st, sched2, chunk, chunk=chunk)
+                out.append((_flat_state(st), tr))
+        buf = io.BytesIO()
+        ckpt.save_sparse_checkpoint(buf, st, params2, pack_cold=True)
+        buf.seek(0)
+        back, _ = ckpt.load_sparse_checkpoint(buf, device=dev)
+        out.append((_flat_state(back), None))
+        runs[dev] = out
+        route[dev] = (counter.calls, sparse_core.launches - launches0)
+    _compare_runs("[18] elastic kernel route", runs["cuda"], runs["cpu"])
+    expect = ticks + 48
+    if route["cuda"] != (route["cpu"][0], route["cpu"][0]) or route["cpu"][0] != expect:
+        fail(f"[18] elastic: kernel routes {route}, expected {expect} of {expect}")
+    pre = [tr for _, tr in runs["cuda"][: ticks // chunk]]
+    post = [tr for _, tr in runs["cuda"][ticks // chunk + 1: -1]]
+    admitted = sum(int(tr["joins_admitted"].sum()) for tr in pre)
+    if admitted != n - n_live or int(pre[-1]["n_live"][-1]) != n:
+        fail(f"[18] elastic: joins_admitted {admitted}, n_live {int(pre[-1]['n_live'][-1])}")
+    if int(post[-1]["n_live"][-1]) != n + 16:
+        fail(f"[18] promoted run: n_live {int(post[-1]['n_live'][-1])}, expected {n + 16}")
+    ring_free = {k: v for k, v in runs["cuda"][-2][0].items() if not k.startswith("trace.")}
+    _compare_runs("[18] packed checkpoint", [(ring_free, None)], [(runs["cuda"][-1][0], None)])
+    say(f"[18] elastic n_alloc={n} ({n_live} live) S={s}, kernel route: card == CPU over "
+        f"{ticks} ticks, joins_admitted {admitted}, n_live {n}; promote to {n2} "
+        f"(card {promoted['cuda'] * 1e3:.3f} ms) and 48 ticks: card == CPU, n_live {n + 16}; "
+        f"sparse_core launches {route['cuda'][1]} (the CPU run routed {route['cpu'][0]}); "
+        "the packed elastic checkpoint round trip equals the state on both devices")
+
+
+def phase_elastic_full_width(torch):
+    """Phase 19: the elastic path at the sparse main path's width."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.sim import checkpoint as ckpt
+    from scalecube_cluster_tpu_torch.sim.sparse import (
+        SparseParams,
+        init_sparse_full_view,
+        run_sparse_chunked,
+    )
+
+    n_live, n, s, chunk, chunks = 30720, 32768, 512, 48, 5
+    params = SparseParams.for_n(n, slot_budget=s, in_scan_writeback=False, pallas_core=True)
+    sched = _elastic_timeline(n, range(n_live, n), "cuda", first=10, every=6, batch=64, kill=7)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    state = init_sparse_full_view(n_live, s, n_alloc=n, device="cuda")
+    per_chunk, traces = [], []
+    for _ in range(chunks):
+        t0 = time.perf_counter()
+        state, tr = run_sparse_chunked(params, state, sched, chunk, chunk, collect=True)
+        int(state.view_T[0, 0])
+        per_chunk.append(time.perf_counter() - t0)
+        traces.append(tr)
+    pre_counts = read_counts()
+    n_live_trace = np.concatenate([tr["n_live"] for tr in traces])
+    admitted = int(sum(int(tr["joins_admitted"].sum()) for tr in traces))
+    ticks = chunks * chunk
+    if pre_counts["sparse_core"] != ticks:
+        fail(f"[19] sparse_core launched {pre_counts['sparse_core']} times on {ticks} ticks")
+    if int(n_live_trace[0]) != n_live or int(n_live_trace[-1]) != n or admitted != n - n_live:
+        fail(f"[19] n_live {int(n_live_trace[0])} -> {int(n_live_trace[-1])}, "
+             f"joins_admitted {admitted}")
+    if np.any(np.diff(n_live_trace) < 0):
+        fail("[19] n_live fell")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params2, state = ckpt.promote_sparse_state(params, state, 2 * n)
+    torch.cuda.synchronize()
+    promote_s = time.perf_counter() - t0
+    sched2 = _elastic_timeline(2 * n, range(n, n + 64), "cuda", first=state.t_host + 2,
+                               every=1, batch=64)
+    t0 = time.perf_counter()
+    state, tr2 = run_sparse_chunked(params2, state, sched2, chunk, chunk, collect=True)
+    int(state.view_T[0, 0])
+    after = time.perf_counter() - t0
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if counts["sparse_core"] != ticks + chunk:
+        fail(f"[19] sparse_core launched {counts['sparse_core'] - ticks} of {chunk} ticks "
+             "after the promotion")
+    if int(tr2["n_live"][-1]) != n + 64 or int(tr2["joins_admitted"].sum()) != 64:
+        fail(f"[19] after promotion: n_live {int(tr2['n_live'][-1])}")
+    for trs in traces + [tr2]:
+        for k, v in trs.items():
+            if not np.all(np.isfinite(v)):
+                fail(f"[19] trace {k} not finite")
+    ms = [c * 1e3 / chunk for c in per_chunk]
+    row = {"chunk_ms_per_tick": ms, "ms_per_tick_before": sum(per_chunk[1:]) * 1e3 / (
+        (chunks - 1) * chunk), "ms_per_tick_after": after * 1e3 / chunk,
+        "promote_s": promote_s, "peak_gib": peak_gib, "joins_admitted": admitted}
+    say(f"[19] elastic n_alloc={n} ({n_live} live) S={s}, kernel route, collected 48-tick "
+        f"chunks: {', '.join(f'{m:.3f}' for m in ms)} ms/tick (joins at ticks 10-196, "
+        f"{admitted} admitted, n_live {int(n_live_trace[0])} -> {int(n_live_trace[-1])}); "
+        f"promote_sparse_state to {2 * n}: {promote_s * 1e3:.3f} ms wall; after it "
+        f"{row['ms_per_tick_after']:.3f} ms/tick over {chunk} ticks (n_live "
+        f"{int(tr2['n_live'][-1])}); peak device memory {peak_gib:.3f} GiB; launches {counts} "
+        f"(expect sparse_core {ticks + chunk})")
+    return counts["sparse_core"], row
+
+
+def _sync_calls(torch, run):
+    """Synchronising CUDA calls ``run()`` makes, counted as the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+
+
+def phase_recorder_full_width(torch):
+    """Phase 20: the flight recorder at the sparse main path's width."""
+    from scalecube_cluster_tpu_torch.bench import measure_tracer_overhead, tracer_schedule
+    from scalecube_cluster_tpu_torch.obs.trace import (
+        DEAD_VIA_EXPIRY,
+        TK_NAMES,
+        TK_PROBE_MISSED,
+        TK_PROBE_SENT,
+        TK_SUSPECT_START,
+        TK_VERDICT_DEAD,
+        ring_events,
+        ring_overflow,
+    )
+    from scalecube_cluster_tpu_torch.sim.sparse import (
+        SparseParams,
+        init_sparse_full_view,
+        run_sparse_ticks,
+    )
+    from scalecube_cluster_tpu_torch.tools.trace_explain import check_c6, walk_chain
+
+    n, s, chunk = 32768, 512, 48
+    reset_counts()
+    row, _ = measure_tracer_overhead(n, slot_budget=s)
+    timing_counts = read_counts()
+    say(f"[20] --tracer-overhead {n} S={s}: tracer_overhead {row['tracer_overhead']:.4f}, "
+        f"{row['ms_per_tick_off']:.3f} ms/tick off, {row['ms_per_tick_on']:.3f} on, "
+        f"events_recorded {row['events_recorded']} of {row['trace_capacity']}, trace_overflow "
+        f"{row['trace_overflow']}, launches {timing_counts}")
+    if any(timing_counts.values()):
+        fail(f"[20] a kernel launched on the XLA chain: {timing_counts}")
+
+    # Synchronising calls of one 48-tick chunk, untraced and traced.
+    params = SparseParams.for_n(n, slot_budget=s)
+    sched = tracer_schedule(n)
+    states = {}
+
+    def one_chunk(label):
+        states[label], _ = run_sparse_ticks(params, states[label], sched, chunk, collect=False)
+
+    syncs = {}
+    for label, cap in (("off", 0), ("on", row["trace_capacity"])):
+        states[label] = init_sparse_full_view(n, s, trace_capacity=cap, device="cuda")
+        one_chunk(label)
+        syncs[label] = _sync_calls(torch, lambda: one_chunk(label))
+    say(f"[20] synchronising CUDA calls in one {chunk}-tick chunk: untraced {syncs['off']}, "
+        f"traced {syncs['on']}")
+    if syncs["on"] > syncs["off"]:
+        fail(f"[20] the recorder adds synchronising calls: {syncs}")
+
+    # The recorder's cost with the host's drift spread over both sides:
+    # untraced and traced chunks alternate, the order flipped every pair.
+    ratios = []
+    for k in range(6):
+        wall = {}
+        for label in ("off", "on")[:: 1 if k % 2 == 0 else -1]:
+            t0 = time.perf_counter()
+            one_chunk(label)
+            int(states[label].view_T[0, 0])
+            wall[label] = time.perf_counter() - t0
+        ratios.append(wall["on"] / wall["off"])
+    ratios.sort()
+    interleaved = (ratios[2] + ratios[3]) / 2
+    say(f"[20] tracer_overhead interleaved over 6 pairs of {chunk}-tick chunks: median "
+        f"{interleaved:.4f}, pairs {', '.join(f'{r:.4f}' for r in ratios)}")
+    row = {**row, "tracer_overhead_interleaved": interleaved, "interleaved_ratios": ratios}
+    del states
+
+    # Certifying: a ring sized for the whole run, to tick 528 (the kill at
+    # tick 5 convicted by expiry after the 400-tick suspicion). The run
+    # records ~130k events a tick, most of them the ALIVE verdicts of
+    # refuted false suspicions, so the ring holds 2^27 (3 GiB).
+    capacity, ticks = 1 << 27, 528
+    st = init_sparse_full_view(n, s, trace_capacity=capacity, device="cuda")
+    t0 = time.perf_counter()
+    for _ in range(ticks // chunk):
+        st, _ = run_sparse_ticks(params, st, sched, chunk, collect=False)
+    int(st.view_T[0, 0])
+    run_s = time.perf_counter() - t0
+    cursor, overflow = int(st.trace.cursor), ring_overflow(st.trace)
+    by_kind = torch.bincount(st.trace.ev_kind[:cursor].long(), minlength=19).tolist()
+    say(f"[20] events by kind: "
+        f"{ {TK_NAMES[k]: c for k, c in enumerate(by_kind) if c} }")
+    t0 = time.perf_counter()
+    # C6 walks DEAD verdicts back through suspicions and misses to probes:
+    # decode those kinds, each at its ring position (a cause pointing to any
+    # other kind is then absent, a violation as it is in the whole ring).
+    events = ring_events(st.trace, kinds={TK_VERDICT_DEAD, TK_SUSPECT_START,
+                                          TK_PROBE_MISSED, TK_PROBE_SENT})
+    violations = check_c6(events)
+    deads = [e for e in events if e["kind"] == TK_VERDICT_DEAD]
+    by_pos = {e["i"]: e for e in events}
+    incomplete = []
+    missed = 0
+    for ev in deads:
+        # explain_verdict's walk, over one position index for every verdict.
+        chain, broken = walk_chain(by_pos, ev)
+        if broken or chain[-1]["kind"] != TK_PROBE_SENT:
+            incomplete.append(ev["i"])
+        missed += any(e["kind"] == TK_PROBE_MISSED for e in chain)
+    check_s = time.perf_counter() - t0
+    by_expiry = sum(1 for e in deads if e["aux"] == DEAD_VIA_EXPIRY)
+    say(f"[20] certifying run n={n} S={s}, {ticks} ticks, ring {capacity}: {run_s / ticks * 1e3:.3f}"
+        f" ms/tick, {cursor} events ({cursor / ticks:.1f} a tick), trace_overflow {overflow}; "
+        f"{len(events)} chain events decoded, {len(deads)} DEAD verdicts ({by_expiry} by "
+        f"expiry, {missed} with a missed probe in their chain), check_c6 violations "
+        f"{len(violations)}, chains not ending at a probe {len(incomplete)}; decode and walk "
+        f"{check_s:.1f} s")
+    if violations or incomplete or not deads or not by_expiry or not missed:
+        fail(f"[20] C6: {violations[:3]}, incomplete {incomplete[:3]}, deads {len(deads)}")
+    return {**row, "syncs": syncs, "certify_events": cursor, "certify_overflow": overflow,
+            "certify_ms_per_tick": run_s / ticks * 1e3, "deads": len(deads)}
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None):
     return {
         "name": name,
@@ -1526,16 +1904,22 @@ def main() -> int:
     phase_timelines_card_vs_cpu(torch)
     sched_sparse_launches, _ = phase_scheduled_sparse(torch)
     sched_dense_launches, _ = phase_dense_timeline(torch)
+    phase_recorder_elastic_card_vs_cpu(torch)
+    elastic_launches, _ = phase_elastic_full_width(torch)
+    phase_recorder_full_width(torch)
 
     kernels = {
         "kernels": [
             _kernel_entry(
                 "sparse_core", "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
                 "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
-                sparse_launches + sched_sparse_launches, core_rows[(32768, 512)],
+                sparse_launches + sched_sparse_launches + elastic_launches,
+                core_rows[(32768, 512)],
                 ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path",
-                 "[15] timelines card vs CPU", "[16] scheduled path"],
-                {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches},
+                 "[15] timelines card vs CPU", "[16] scheduled path",
+                 "[18] elastic card vs CPU", "[19] elastic path"],
+                {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches,
+                 "[19] elastic path": elastic_launches},
             ),
             _kernel_entry(
                 "tick_core", "scalecube_cluster_tpu_torch/csrc/tick_core.cu",
@@ -1573,7 +1957,7 @@ def main() -> int:
             ),
         ]
     }
-    say(f"[18] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[21] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

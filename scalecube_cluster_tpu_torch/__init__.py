@@ -12,6 +12,10 @@ its hand-written CUDA sparse-core kernel (``ops/sparse_core.py`` +
 core (``ops/tick_core.py``); the persistent k-tick sparse core
 (``ops/sparse_persistent.py``, driven by ``bench.py --engine persistent``);
 the fused delivery + merge (``ops/delivery_merge.py``, driven by
-``tools/profile_tick.py``); the card probes (``tools/probe_kernels.py``);
-and checkpoints that cross packages (``sim/checkpoint.py``).
+``tools/profile_tick.py``); the card probes (``tools/probe_kernels.py``); fault timelines, geo
+worlds and knobs; elastic membership and geometry promotion; the causal
+flight recorder (``obs/tracer.py``, decoded by ``obs/trace.py`` and
+certified by ``tools/trace_explain.py``) and the other observability
+copies (``obs/``); ``sim/monitor.py``; and checkpoints that cross
+packages (``sim/checkpoint.py``).
 """

@@ -24,24 +24,32 @@ latency is 400 ms, timed like the dense rung; the row also carries its
 flat-world twin (the same schedule without the world), ``flat_value``, and
 ``geo_overhead`` = flat / geo (:func:`measure_geo`).
 
+Tracer (``bench.py::_measure_tracer_overhead``, ``--tracer-overhead [n]``,
+default n=4096): the sparse engine on the XLA chain (``SparseParams.for_n``,
+in-tick write-back) under a churn schedule (5% loss, kills at ticks 3 and
+5, a restart at 25), one warm-up and ``reps`` timed 48-tick chunks, run
+without and then with the flight recorder; ``tracer_overhead`` = on / off
+wall (:func:`measure_tracer_overhead`).
+
 Persistent (``bench.py::_measure_persistent_ksweep``, ``python bench.py
 --persistent-ksweep [n] [k_max]``): the persistent k-tick sparse core
 (``ops/sparse_persistent.py``) swept over launch depth k = 1..k_max on one
 build, over the seeded operands of the JAX rung (:func:`measure_persistent_ksweep`).
 
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
-[--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``) prints one JSON line per run
-of ``CLI_REPS`` timed chunks; ``--profile`` instead prints where a tick's
-time goes (:func:`profile_sparse`, :func:`profile_dense`). ``--engine
-persistent [n] [S] [--k-max K]`` prints one JSON row per k. There is no
-CPU fallback for the measurement.
+[--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``, or
+``--tracer-overhead [n] [S]``) prints one JSON line per run of ``CLI_REPS``
+timed chunks; ``--profile`` instead prints where a tick's time goes
+(:func:`profile_sparse`, :func:`profile_dense`). ``--engine persistent [n]
+[S] [--k-max K]`` prints one JSON row per k. Every line is a row of
+obs/export.py (``make_row``: schema version, kind, run metadata). There is
+no CPU fallback for the measurement.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import math
 import statistics
 import sys
@@ -49,6 +57,8 @@ import time
 
 import torch
 
+from scalecube_cluster_tpu_torch.obs.export import jsonl_line, make_row, run_metadata
+from scalecube_cluster_tpu_torch.obs.trace import ring_overflow
 from scalecube_cluster_tpu_torch.ops import sparse_persistent
 from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
 from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
@@ -324,6 +334,79 @@ def measure_geo(n: int = 1024, chunk: int = 40, reps: int = 4) -> dict:
     }
 
 
+#: The reference rung's ring at n=4096; :func:`measure_tracer_overhead`
+#: scales it with n.
+TRACER_RUNG_CAPACITY_4096 = 1 << 16
+
+
+def tracer_schedule(n: int):
+    """The tracer rung's churn timeline (bench.py::_measure_tracer_overhead):
+    5% loss from tick 0, member 7 killed at tick 3 and member n/2 at 5,
+    member 7 restarted at 25."""
+    return (
+        ScheduleBuilder(n)
+        .add_segment(0, FaultPlan.uniform(loss_percent=5.0, device="cuda"))
+        .kill(3, 7)
+        .kill(5, n // 2)
+        .restart(25, 7)
+        .build()
+    )
+
+
+def measure_tracer_overhead(n: int = 4096, slot_budget: int | None = None, chunk: int = 48,
+                            reps: int = 4):
+    """The ``--tracer-overhead [n]`` rung (bench.py::_measure_tracer_overhead):
+    the same sparse trajectory run without and then with the flight
+    recorder, ``tracer_overhead`` = on / off wall time, beside the
+    recorder-on throughput. ``SparseParams.for_n(n)`` (the XLA chain,
+    in-tick write-back; ``slot_budget`` overrides its 2048), one warm-up
+    and ``reps`` timed ``chunk``-tick runs (collect=False), each ending in a
+    fetch from the view. The ring holds the reference's 1 << 16 events
+    scaled by n / 4096; its overflow is counted.
+
+    Returns ``(row, traced_state)``."""
+    params = SparseParams.for_n(n, **({} if slot_budget is None else {"slot_budget": slot_budget}))
+    sched = tracer_schedule(n)
+    capacity = TRACER_RUNG_CAPACITY_4096 * max(1, n // 4096)
+
+    def timed(trace_capacity: int):
+        state = init_sparse_full_view(n, params.slot_budget, trace_capacity=trace_capacity,
+                                      device="cuda")
+        state, _ = run_sparse_ticks(params, state, sched, chunk, collect=False)
+        int(state.view_T[0, 0])
+        per_chunk = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            state, _ = run_sparse_ticks(params, state, sched, chunk, collect=False)
+            int(state.view_T[0, 0])
+            per_chunk.append(time.perf_counter() - t0)
+        return per_chunk, state
+
+    off, _ = timed(0)
+    on, traced = timed(capacity)
+    dt_off, dt_on = sum(off), sum(on)
+    value = n * (reps * chunk / dt_on)
+    row = {
+        "metric": "member_gossip_rounds_per_sec",
+        "value": value,
+        "unit": "member·rounds/s",
+        "vs_baseline": value / BASELINE_MEMBER_ROUNDS_PER_SEC,
+        "ns_per_member": 1e9 / value,
+        "tracer_overhead": dt_on / dt_off,
+        "trace_capacity": capacity,
+        "events_recorded": int(traced.trace.cursor),
+        "trace_overflow": ring_overflow(traced.trace),
+        "n_members": n,
+        "slot_budget": params.slot_budget,
+        "engine": "sparse-traced",
+        "ms_per_tick_off": dt_off * 1e3 / (reps * chunk),
+        "ms_per_tick_on": dt_on * 1e3 / (reps * chunk),
+        "chunk_ms_per_tick_off": [c * 1e3 / chunk for c in off],
+        "chunk_ms_per_tick_on": [c * 1e3 / chunk for c in on],
+    }
+    return row, traced
+
+
 def measure_persistent_ksweep(
     n: int = 4096, k_max: int = 8, reps: int = 4, slot_budget: int | None = None
 ) -> list[dict]:
@@ -393,19 +476,29 @@ def main(argv) -> int:
     ap.add_argument("--k-max", type=int, default=8, help="persistent only")
     ap.add_argument("--geo", type=int, nargs="?", const=1024, default=None, metavar="N",
                     help="the dense geo-brownout rung at N members (default 1024)")
+    ap.add_argument("--tracer-overhead", type=int, nargs="?", const=4096, default=None,
+                    metavar="N", help="the flight-recorder cost rung at N members "
+                    "(default 4096; the positional S overrides its slab width)")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
         return 2
-    meta = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
-            "cuda": torch.version.cuda}
+    extra = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
+             "cuda": torch.version.cuda}
+
+    def emit(kind: str, row: dict) -> None:
+        print(jsonl_line(make_row(kind, {**row, **extra}, run_metadata(seed=0))), flush=True)
+
     if args.geo is not None:
-        print(json.dumps({**measure_geo(args.geo), **meta}), flush=True)
+        emit("bench_geo", measure_geo(args.geo))
+        return 0
+    if args.tracer_overhead is not None:
+        emit("bench_tracer", measure_tracer_overhead(args.tracer_overhead, args.slot_budget)[0])
         return 0
     if args.engine == "persistent":
         for row in measure_persistent_ksweep(args.n or 4096, args.k_max,
                                              slot_budget=args.slot_budget):
-            print(json.dumps({**row, **meta}), flush=True)
+            emit("bench_persistent", row)
         return 0
     slot_budget = args.slot_budget or 512
     for _ in range(args.runs):
@@ -416,7 +509,7 @@ def main(argv) -> int:
             row = profile_sparse(args.n or 32768, slot_budget)
         else:
             row, _ = measure_sparse(args.n or 32768, slot_budget, reps=CLI_REPS)
-        print(json.dumps({**row, **meta}), flush=True)
+        emit("bench", row)
     return 0
 
 

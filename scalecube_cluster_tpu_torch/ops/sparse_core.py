@@ -62,7 +62,7 @@ AGGR_DEAD_BIT = 2
 def sparse_core_reference(
     slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
     fd_slot, sy_slot, fd_key, sy_key, *, spread, susp_ticks, age_stale, sweep,
-    group=SPARSE_GROUP,
+    group=SPARSE_GROUP, expiry=False,
 ):
     """Plain PyTorch version of the fused core; same signature and outputs
     as :func:`sparse_core`: ``(slab2 i32, age2 i8, susp2 i16 [N, S],
@@ -76,6 +76,10 @@ def sparse_core_reference(
     FD/SYNC point update (``fd_slot``/``sy_slot`` lanes, -1 = none, keys in
     ``fd_key``/``sy_key``) applies to its own row both as a receiver and as
     a sender, SYNC winning a same-cell collision, and makes the cell young.
+
+    ``expiry=True`` appends the [N, S] bool mask of cells whose suspicion
+    countdown expired into DEAD this tick (the flight recorder's
+    ``DEAD_VIA_EXPIRY``), which the kernel does not expose.
     """
     n, s = slab.shape
     lanes = torch.arange(s, dtype=torch.int32, device=slab.device)
@@ -137,13 +141,14 @@ def sparse_core_reference(
         | ((susp_rec & alive_row).any(dim=0).to(torch.int32) << AGGR_SUSPECT_BIT)
         | ((dead2 & alive_row).any(dim=0).to(torch.int32) << AGGR_DEAD_BIT)
     )
-    return (
+    out = (
         slab2.to(torch.int32),
         age2.to(torch.int8),
         susp2.to(torch.int16),
         self_rumor.to(torch.int32),
         aggr,
     )
+    return out + (expired,) if expiry else out
 
 
 def check_offsets(n: int, s: int) -> None:

@@ -4,8 +4,10 @@ given as a dict of numpy arrays keyed by field name (``rng`` included, as
 its ``uint32[2]`` raw key), becomes this package's state on ``device``,
 and back.
 
-Only the fields of a fixed-shape, recorder-free sparse state are carried;
-the reference's ``trace`` and ``live_mask`` must be absent (None).
+A sparse state's flight-recorder ring travels as ``d["trace"]``: any
+object or dict holding the ring's fields (the reference's ``TraceRing``,
+or the dict :func:`sparse_state_to_numpy` writes). The sharded recorder is
+not carried.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from scalecube_cluster_tpu_torch.obs.tracer import ring_from_fields, ring_to_numpy
 from scalecube_cluster_tpu_torch.sim.sparse import SparseState
 from scalecube_cluster_tpu_torch.sim.state import SimState
 
@@ -80,15 +83,18 @@ _OPTIONAL = {
     "lat_first_dead": torch.int32,
     "wb_pinned": torch.bool,
     "wb_valid": torch.bool,
+    "live_mask": torch.bool,
 }
-_UNSUPPORTED = ("trace", "live_mask")
 
 
 def sparse_state_from_numpy(d: dict, device="cuda") -> SparseState:
-    """Build this package's state from a dict of numpy arrays."""
-    for name in _UNSUPPORTED:
-        if d.get(name) is not None:
-            raise ValueError(f"field {name!r} is not supported by the port")
+    """Build this package's state from a dict of numpy arrays (``trace``,
+    when present, an object or dict of the ring's fields)."""
+    ring = d.get("trace")
+    if ring is not None:
+        cursor = ring["cursor"] if isinstance(ring, dict) else ring.cursor
+        if len(np.shape(cursor)) != 0:
+            raise ValueError("a sharded trace ring is not supported by the port")
 
     # Copies: the engine updates view_T and slab in place, which must not
     # reach the caller's arrays.
@@ -97,18 +103,22 @@ def sparse_state_from_numpy(d: dict, device="cuda") -> SparseState:
         {name: _to_device(d, name, dt, device) if d.get(name) is not None else None
          for name, dt in _OPTIONAL.items()}
     )
+    fields["trace"] = None if ring is None else ring_from_fields(ring, device=device)
     return SparseState(rng=_rng(d), t_host=int(np.asarray(d["tick"])), **fields)
 
 
 def sparse_state_to_numpy(state: SparseState) -> dict:
     """The inverse of :func:`sparse_state_from_numpy`: a dict of numpy
-    arrays in the reference's dtypes (optional leaves only when present).
-    The arrays are copies: the engine updates ``view_T`` and ``slab`` in
-    place, and a CPU tensor's ``.numpy()`` would share that memory."""
+    arrays in the reference's dtypes (optional leaves only when present;
+    the ring as ``out["trace"]``, a dict of its fields). The arrays are
+    copies: the engine updates ``view_T`` and ``slab`` in place, and a CPU
+    tensor's ``.numpy()`` would share that memory."""
     out = {name: np.array(getattr(state, name).cpu()) for name in _LEAVES}
     for name in _OPTIONAL:
         value = getattr(state, name)
         if value is not None:
             out[name] = np.array(value.cpu())
+    if state.trace is not None:
+        out["trace"] = ring_to_numpy(state.trace)
     out["rng"] = np.asarray(state.rng, dtype=np.uint32).copy()
     return out

@@ -212,9 +212,12 @@ def edge_loss(plan: FaultPlan, src, dst) -> torch.Tensor:
     """Per-edge drop probability: with a world, the plan's loss composed
     with the zone pair's as independent drops, ``1 - (1-p)(1-q)`` (also
     where q is 0). XLA:CPU fuses the product and the subtraction into one
-    rounding on the engines' edge sets, except on a dense plan's
-    two-relay legs ([N, 2]), which its vectorizer rounds twice; both are
-    reproduced (tests/test_torch_topology.py, ROADMAP Queue C)."""
+    rounding on the engines' edge sets ([N], and the relay legs [N, 3]),
+    except on a dense plan's two-relay legs ([N, 2]), which its vector
+    loop rounds twice; both are reproduced. Where that loop leaves a scalar
+    tail, and on the other inner widths it vectorises, the rounding
+    follows the host's vector unit and differs (tests/test_torch_topology.py,
+    ROADMAP Queue C)."""
     loss = _edge_lookup(plan.loss, src, dst)
     w = plan.link_world
     if w is not None:

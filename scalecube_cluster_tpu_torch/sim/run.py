@@ -42,14 +42,20 @@ def check_plan(plan) -> bool:
     raise TypeError(f"plan must be a FaultPlan or a FaultSchedule, got {type(plan).__name__}")
 
 
-def scheduled_inputs(schedule: FaultSchedule, t: int, n: int, device, traces=None):
+def scheduled_inputs(schedule: FaultSchedule, t: int, n: int, device, traces=None,
+                     joins: bool = False):
     """Global tick ``t``'s plan and ``(kill, restart)`` masks (device
     tensors; None when the host table holds no event at ``t``), recorded
-    in ``traces`` (a :class:`ScheduleTraces`) when given."""
-    ev = host_events_at(schedule, t, n)
+    in ``traces`` (a :class:`ScheduleTraces`) when given. ``joins`` (an
+    elastic state) fires the join lane too, as the 4-tuple ``(kill,
+    restart, None, join)``."""
+    ev = host_events_at(schedule, t, n, joins=joins)
     if traces is not None:
         traces.record(t, ev)
-    events = None if ev is None else tuple(torch.from_numpy(m).to(device) for m in ev)
+    if ev is None:
+        return plan_at(schedule, t), None
+    masks = tuple(torch.from_numpy(m).to(device) for m in ev)
+    events = masks[:2] + (None, masks[2]) if joins else masks
     return plan_at(schedule, t), events
 
 
@@ -58,14 +64,17 @@ class ScheduleTraces:
     host and stacked once per run (the zone gauges' per-viewer counts stay
     on the device until then)."""
 
-    def __init__(self, schedule: FaultSchedule):
+    def __init__(self, schedule: FaultSchedule, joins: bool = False):
         self.schedule = schedule
         self.dirty, self.kills, self.restarts, self.zone_counts = [], [], [], []
+        self.joins = [] if joins else None
 
     def record(self, t: int, ev) -> None:
         self.dirty.append(plan_dirty_at(self.schedule, t))
         self.kills.append(0 if ev is None else int(ev[0].sum()))
         self.restarts.append(0 if ev is None else int(ev[1].sum()))
+        if self.joins is not None:
+            self.joins.append(0 if ev is None else int(ev[2].sum()))
 
     def add_view(self, count_rows) -> None:
         """Count the zone gauges of this tick's view: ``count_rows(world)``
@@ -78,6 +87,8 @@ class ScheduleTraces:
         traces["plan_dirty"] = torch.tensor(self.dirty, dtype=torch.bool, device=device)
         traces["kills_fired"] = torch.tensor(self.kills, dtype=torch.int32, device=device)
         traces["restarts_fired"] = torch.tensor(self.restarts, dtype=torch.int32, device=device)
+        if self.joins is not None:
+            traces["joins_fired"] = torch.tensor(self.joins, dtype=torch.int32, device=device)
         world = self.schedule.link_world
         if world is not None:
             counts = torch.stack(self.zone_counts).cpu().numpy()

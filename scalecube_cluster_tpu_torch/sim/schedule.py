@@ -198,17 +198,16 @@ def _event_masks(schedule: FaultSchedule, t: int, n: int, kinds) -> list[np.ndar
     return out
 
 
-def host_events_at(schedule: FaultSchedule, t: int, n: int):
-    """``(kill, restart)`` numpy masks of tick ``t``, or None when the host
-    table holds no kill or restart at ``t`` (the runners' cheap check)."""
+def host_events_at(schedule: FaultSchedule, t: int, n: int, joins: bool = False):
+    """``(kill, restart)`` numpy masks of tick ``t`` (``(kill, restart,
+    join)`` with ``joins``), or None when the host table holds none of
+    those events at ``t`` (the runners' cheap check)."""
     host = _host(schedule)
-    fire = (host.ev_tick == int(t)) & (
-        (host.ev_kind == EV_KILL) | (host.ev_kind == EV_RESTART)
-    )
+    kinds = (EV_KILL, EV_RESTART, EV_JOIN) if joins else (EV_KILL, EV_RESTART)
+    fire = (host.ev_tick == int(t)) & np.isin(host.ev_kind, kinds)
     if not fire.any():
         return None
-    kill, restart = _event_masks(schedule, int(t), n, (EV_KILL, EV_RESTART))
-    return kill, restart
+    return tuple(_event_masks(schedule, int(t), n, kinds))
 
 
 def events_at(schedule: FaultSchedule, t: int, n: int):
@@ -218,6 +217,15 @@ def events_at(schedule: FaultSchedule, t: int, n: int):
     kill, restart = _event_masks(schedule, int(t), n, (EV_KILL, EV_RESTART))
     dev = schedule.ev_tick.device
     return torch.from_numpy(kill).to(dev), torch.from_numpy(restart).to(dev)
+
+
+def rapid_events_at(schedule: FaultSchedule, t: int, n: int):
+    """``(kill_mask, restart_mask, join_mask)`` — :func:`events_at` plus
+    the EV_JOIN lane (the elastic sparse runners and the join-aware
+    engines)."""
+    masks = _event_masks(schedule, int(t), n, (EV_KILL, EV_RESTART, EV_JOIN))
+    dev = schedule.ev_tick.device
+    return tuple(torch.from_numpy(m).to(dev) for m in masks)
 
 
 def scheduled_kill_ticks(schedule: FaultSchedule) -> dict[int, list[int]]:

@@ -1,7 +1,6 @@
 """Sparse (compact-rumor) SWIM engine on a bounded working set
-(port of scalecube_cluster_tpu/sim/sparse.py for fixed-shape clusters:
-fault plans and schedules, knobs, the host ops; the flight recorder and
-elastic membership are ROADMAP A9/A10).
+(port of scalecube_cluster_tpu/sim/sparse.py: fault plans and schedules,
+knobs, the host ops, elastic membership and the causal flight recorder).
 
 Representation (as in the reference):
 
@@ -42,9 +41,18 @@ Control flow differs from the reference only in form, never in result:
   tick synchronises with the device. :func:`writeback_free`, which runs at
   chunk boundaries, reads the freed-slot list back to the host once.
 
+Elastic membership (``init_sparse_full_view(..., n_alloc=)``) allocates
+capacity rows that a scheduled join activates in the tick (the 4-tuple
+events of :func:`apply_events_sparse`); ``live_mask`` marks the rows whose
+identity has ever been live. The flight recorder
+(``init_sparse_full_view(..., trace_capacity=)``, obs/tracer.py) records
+the tick's causal events on the XLA chain; the kernel route refuses it, as
+the reference's does. Without either, the state and the tick are what they
+are with neither field present.
+
 A tick consumes the state it is given: the slab load and the write-back
 update the input tensors in place, the way the reference's runners donate
-their input state.
+their input state; so does the flight recorder's ring.
 """
 
 from __future__ import annotations
@@ -57,6 +65,26 @@ import torch
 
 from scalecube_cluster_tpu_torch import prng
 from scalecube_cluster_tpu_torch.cluster_api.member import MemberStatus
+from scalecube_cluster_tpu_torch.obs.counters import SHARED_COUNTERS
+from scalecube_cluster_tpu_torch.obs.trace import DEAD_VIA_EXPIRY, DEAD_VIA_GOSSIP
+from scalecube_cluster_tpu_torch.obs.tracer import (
+    SHARDED_RING_ERROR,
+    TK_GOSSIP_EDGE,
+    TK_JOIN_EV,
+    TK_KILL,
+    TK_PROBE_MISSED,
+    TK_PROBE_SENT,
+    TK_RESTART,
+    TK_SUSPECT_START,
+    TK_SYNC_ACCEPT,
+    TK_VERDICT_ALIVE,
+    TK_VERDICT_DEAD,
+    TraceRing,
+    init_trace_ring,
+    trace_emit,
+    trace_host_event,
+    trace_reset_members,
+)
 from scalecube_cluster_tpu_torch.ops.delivery import (
     GROUP,
     fanout_permutations_structured,
@@ -253,6 +281,11 @@ class SparseState:
     lat_first_dead: torch.Tensor | None = None  # [N] int32
     wb_pinned: torch.Tensor | None = None  # [S] bool
     wb_valid: torch.Tensor | None = None  # [] bool
+    #: Causal flight recorder (obs/tracer.py), None when not armed.
+    trace: TraceRing | None = None
+    #: Elastic membership: True for rows whose identity has ever been live,
+    #: False for capacity rows; None on a fixed-shape cluster.
+    live_mask: torch.Tensor | None = None  # [N] bool
 
     def replace(self, **changes) -> "SparseState":
         return dataclasses.replace(self, **changes)
@@ -269,38 +302,74 @@ def init_sparse_full_view(
     user_gossip_slots: int = 4,
     infected_k: int = 16,
     record_latency: bool = False,
+    trace_capacity: int = 0,
+    trace_shards: int = 0,
+    n_alloc: int | None = None,
     device="cuda",
 ) -> SparseState:
     """Post-join steady state, nothing active: every member knows every
     member ALIVE at incarnation 0. ``infected_k`` sizes the user-gossip
     last-k-senders ring (0 selects the untracked lifecycle);
-    ``record_latency`` attaches the first-suspect / first-dead recorder."""
+    ``record_latency`` attaches the first-suspect / first-dead recorder.
+
+    ``trace_capacity > 0`` attaches the causal flight recorder's ring,
+    sized for that many events over the whole run (``trace_shards > 0``,
+    the sharded recorder, raises: it belongs to the explicit-SPMD engine).
+
+    ``n_alloc`` (elastic membership): allocate ``n_alloc >= n`` member rows
+    with only the first ``n`` live; the rest are capacity rows (dead,
+    UNKNOWN along both view axes) that a scheduled join activates. ``None``
+    or ``n_alloc == n`` is the fixed-shape state (``live_mask`` None). The
+    caller's ``SparseParams`` must be built for ``n_alloc``."""
+    if trace_capacity and trace_shards:
+        raise ValueError(SHARDED_RING_ERROR)
     S = slot_budget
 
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=device)
 
+    if n_alloc is None or n_alloc == n:
+        na = n
+        live = None
+        view_T = torch.zeros((na, na), dtype=_I32, device=device)  # ALIVE@inc0
+        alive = full((na,), True, torch.bool)
+    else:
+        if n_alloc < n:
+            raise ValueError(f"n_alloc={n_alloc} < n_live={n}")
+        if n_alloc % GROUP != 0:
+            raise ValueError(
+                f"n_alloc={n_alloc} must be a multiple of {GROUP} "
+                "(structured fan-out group)"
+            )
+        na = n_alloc
+        live = torch.arange(na, device=device) < n
+        # Live members know each other ALIVE@inc0; capacity rows are UNKNOWN
+        # along both axes.
+        view_T = torch.where(live[:, None] & live[None, :], 0, UNKNOWN_KEY).to(_I32)
+        alive = live.clone()
     return SparseState(
-        view_T=torch.zeros((n, n), dtype=_I32, device=device),  # ALIVE@inc0
+        view_T=view_T,
         slot_subj=full((S,), -1, _I32),
-        subj_slot=full((n,), -1, _I32),
-        slab=full((n, S), UNKNOWN_KEY, _I32),
-        age=full((n, S), AGE_STALE, torch.int8),
-        susp=full((n, S), 0, torch.int16),
-        inc_self=full((n,), 0, _I32),
-        epoch=full((n,), 0, _I32),
-        alive=full((n,), True, torch.bool),
-        useen=full((n, user_gossip_slots), False, torch.bool),
-        uage=full((n, user_gossip_slots), 0, _I32),
-        uinf_ids=full((n, user_gossip_slots, infected_k), -1, _I32),
-        uptr=full((n, user_gossip_slots), 0, _I32),
+        subj_slot=full((na,), -1, _I32),
+        slab=full((na, S), UNKNOWN_KEY, _I32),
+        age=full((na, S), AGE_STALE, torch.int8),
+        susp=full((na, S), 0, torch.int16),
+        inc_self=full((na,), 0, _I32),
+        epoch=full((na,), 0, _I32),
+        alive=alive,
+        useen=full((na, user_gossip_slots), False, torch.bool),
+        uage=full((na, user_gossip_slots), 0, _I32),
+        uinf_ids=full((na, user_gossip_slots, infected_k), -1, _I32),
+        uptr=full((na, user_gossip_slots), 0, _I32),
         tick=full((), 0, _I32),
         rng=prng.PRNGKey(seed),
         t_host=0,
-        lat_first_suspect=full((n,), -1, _I32) if record_latency else None,
-        lat_first_dead=full((n,), -1, _I32) if record_latency else None,
+        lat_first_suspect=full((na,), -1, _I32) if record_latency else None,
+        lat_first_dead=full((na,), -1, _I32) if record_latency else None,
         wb_pinned=full((S,), False, torch.bool),
         wb_valid=full((), False, torch.bool),
+        trace=init_trace_ring(na, trace_capacity, device) if trace_capacity else None,
+        live_mask=live,
     )
 
 
@@ -323,10 +392,18 @@ def inject_gossip_sparse(state: SparseState, node_idx: int, slot: int) -> Sparse
 
 
 def kill_sparse(state: SparseState, idx) -> SparseState:
-    """Hard-stop process ``idx`` (an index or an index array)."""
+    """Hard-stop process ``idx`` (an index or an index array). A traced
+    state records a KILL per member, stamped at the next tick to execute
+    (the in-tick scheduled kill's convention)."""
     alive = state.alive.clone()
     alive[_members(idx, alive)] = False
-    return _invalidate_wb(state).replace(alive=alive)
+    state = _invalidate_wb(state).replace(alive=alive)
+    if state.trace is not None:
+        ring = state.trace
+        for j in np.asarray(idx).ravel().tolist():
+            ring = trace_host_event(ring, TK_KILL, state.t_host + 1, -1, int(j))
+        state = state.replace(trace=ring)
+    return state
 
 
 def _members(idx, like: torch.Tensor) -> torch.Tensor:
@@ -437,6 +514,13 @@ def restart_many_sparse(state: SparseState, idxs) -> SparseState:
         lat_s[ii] = -1
         lat_d[ii] = -1
         state = state.replace(lat_first_suspect=lat_s, lat_first_dead=lat_d)
+    if state.trace is not None:
+        ring = state.trace
+        for j in idx_list:
+            ring = trace_host_event(ring, TK_RESTART, state.t_host + 1, -1, j)
+        fresh = torch.zeros_like(state.alive)
+        fresh[ii] = True
+        state = state.replace(trace=trace_reset_members(ring, fresh))
 
     # 2. Slot allocation on the host: already-active subjects keep their
     # slot, the others take the free slots in order.
@@ -476,17 +560,19 @@ def restart_many_sparse(state: SparseState, idxs) -> SparseState:
 def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask=None,
                         join_mask=None) -> SparseState:
     """Scheduled kill/restart (and, with ``gossip_mask [N, G]``, user-gossip
-    injections) applied before the tick body. Kill is :func:`kill_sparse`.
-    Restart is the reference's fast restart with persistence: the node
-    keeps its table, comes back at epoch + 1 (clamped at EPOCH_MAX) and
-    incarnation 0 with a cold working row (no young record, no armed timer)
-    and no user-gossip state, and announces itself through the tick's slot
-    path. Joins (elastic membership) are ROADMAP A9. Consumes no RNG;
-    masks with no event leave the state as it was."""
-    if join_mask is not None:
-        raise NotImplementedError("join events need elastic states (ROADMAP A9)")
+    injections; with ``join_mask [N]``, elastic joins) applied before the
+    tick body. Kill is :func:`kill_sparse`. Restart is the reference's fast
+    restart with persistence: the node keeps its table, comes back at
+    epoch + 1 (clamped at EPOCH_MAX) and incarnation 0 with a cold working
+    row (no young record, no armed timer) and no user-gossip state, and
+    announces itself through the tick's slot path. A join activates a
+    capacity row as a new identity the same way (epoch 0 → 1) and sets its
+    ``live_mask`` bit. A traced state records the events (kills, restarts,
+    joins, then injected gossip with ``aux`` 1) before anything the tick
+    body emits. Consumes no RNG; masks with no event leave the state as it
+    was."""
     n = state.alive.shape[0]
-    fresh = restart_mask
+    fresh = restart_mask if join_mask is None else restart_mask | join_mask
     any_ev = (kill_mask | fresh).any()
     if gossip_mask is not None:
         any_ev = any_ev | gossip_mask.any()
@@ -506,6 +592,8 @@ def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask
         uptr=torch.where(fresh[:, None], 0, state.uptr),
         uinf_ids=uinf_ids,
     )
+    if join_mask is not None and st.live_mask is not None:
+        st = st.replace(live_mask=st.live_mask | join_mask)
     if gossip_mask is not None:
         st = st.replace(
             useen=st.useen | gossip_mask, uage=torch.where(gossip_mask, 0, st.uage)
@@ -517,6 +605,25 @@ def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask
         )
     if st.wb_valid is not None:
         st = st.replace(wb_valid=st.wb_valid & ~any_ev)
+    if st.trace is not None:
+        t_ev = st.t_host + 1  # the tick about to execute
+        col_ev = torch.arange(n, dtype=_I32, device=st.device)
+        ring = st.trace
+        ring, _ = trace_emit(ring, TK_KILL, kill_mask, t_ev, -1, col_ev)
+        ring, _ = trace_emit(ring, TK_RESTART, restart_mask, t_ev, -1, col_ev)
+        if join_mask is not None:
+            # Scheduled joins carry the joiner's origin register (-1), read
+            # before the reset below clears the fresh identities.
+            ring, _ = trace_emit(ring, TK_JOIN_EV, join_mask, t_ev, -1, col_ev,
+                                 cause=ring.origin)
+        ring = trace_reset_members(ring, fresh)
+        if gossip_mask is not None:
+            g = gossip_mask.shape[1]
+            ring, _ = trace_emit(
+                ring, TK_GOSSIP_EDGE, gossip_mask, t_ev, -1,
+                torch.arange(g, dtype=_I32, device=st.device)[None, :], aux=1,
+            )
+        st = st.replace(trace=ring)
     return st
 
 
@@ -525,6 +632,14 @@ def _put_drop(vec: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     where ``len(vec)`` means dropped; kept indices must be distinct."""
     pad = torch.cat([vec, vec.new_zeros(1)])
     pad.scatter_(0, idx.long(), vals.to(vec.dtype))
+    return pad[:-1]
+
+
+def _max_drop(vec: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``vec.at[idx].max(vals, mode="drop")`` for ``idx`` in [0, len(vec)]
+    where ``len(vec)`` means dropped."""
+    pad = torch.cat([vec, vec.new_zeros(1)])
+    pad.scatter_reduce_(0, idx.long(), vals.to(vec.dtype), "amax", include_self=True)
     return pad[:-1]
 
 
@@ -617,10 +732,12 @@ def _write_back(params: SparseParams, state: SparseState, freeing: torch.Tensor)
     return slot_subj, subj_slot
 
 
-def _fd_decide(p, plan, t, k_tgt, k_ping, k_relay, record_of, alive, epoch, collect):
+def _fd_decide(p, plan, t, k_tgt, k_ping, k_relay, record_of, alive, epoch, collect,
+               trace=False):
     """The FD probe decision for every viewer (the reference's shared body,
     identity cut). Returns ``(tgt, fd_key, fire, msgs)`` plus, under
-    ``collect``, ``(pings, ping_reqs, acks)`` and the 4 accounting sums."""
+    ``collect``, ``(pings, ping_reqs, acks)`` and the 4 accounting sums,
+    and under ``trace`` the recorder's ``(probing, missed, gone)`` masks."""
     n = p.n
     dev = alive.device
     col = torch.arange(n, dtype=_I32, device=dev)
@@ -684,10 +801,12 @@ def _fd_decide(p, plan, t, k_tgt, k_ping, k_relay, record_of, alive, epoch, coll
             _link_acct(att4, edge_blocked(plan, ridx, colc), leg_ro),
         )
         out = out + (n_pings, n_ping_reqs, reached.sum(dtype=_I32)) + acct
+    if trace:
+        out = out + (probing, probing & ~reached, gone)
     return out
 
 
-def _fd_zeros(n, collect, dev):
+def _fd_zeros(n, collect, dev, trace=False):
     zero = torch.zeros((), dtype=_I32, device=dev)
     out = (
         torch.zeros((n,), dtype=_I32, device=dev),
@@ -697,6 +816,9 @@ def _fd_zeros(n, collect, dev):
     )
     if collect:
         out = out + (zero, zero, zero) + _acct_zero(dev)
+    if trace:
+        none = torch.zeros((n,), dtype=torch.bool, device=dev)
+        out = out + (none, none, none)
     return out
 
 
@@ -763,11 +885,15 @@ def sparse_tick(
     under ``collect=False`` the metrics are ``{"tick": t}`` only. Consumes
     ``state`` (see the module docstring).
 
-    ``events`` is None or ``(kill_mask, restart_mask[, gossip_mask])``
-    (:func:`apply_events_sparse`, before the tick body; a restarted node
-    requests its own slot and announces its new identity there).
+    ``events`` is None, ``(kill_mask, restart_mask[, gossip_mask])`` or
+    the elastic 4-tuple ``(kill_mask, restart_mask, gossip_mask or None,
+    join_mask)`` (:func:`apply_events_sparse`, before the tick body; a
+    restarted or joining node requests its own slot and announces its new
+    identity there; under a join mask those requests outrank the others).
     ``knobs`` (sim/knobs.py) need ``pallas_core=False``; identity knobs
-    equal ``knobs=None``."""
+    equal ``knobs=None``. A traced state needs the XLA chain (the kernel
+    route raises ``ValueError``); with ``collect`` its metrics add
+    ``trace_overflow``."""
     p = params.base
     n, S = p.n, params.slot_budget
     f = p.gossip_fanout
@@ -783,12 +909,13 @@ def sparse_tick(
             f"sparse_tick takes one tick's FaultPlan (got {type(plan).__name__}); "
             "run a FaultSchedule through run_sparse_ticks / run_sparse_chunked"
         )
-    fresh_m = None
+    fresh_m = join_m = None
     if events is not None:
-        if len(events) > 3:
-            raise NotImplementedError("join events need elastic states (ROADMAP A9)")
-        state = apply_events_sparse(state, *events)
-        fresh_m = events[1]
+        gossip_m = events[2] if len(events) > 2 else None
+        join_m = events[3] if len(events) > 3 else None
+        state = apply_events_sparse(state, events[0], events[1], gossip_m, join_m)
+        # Restarts and joins both announce fresh identities in step 3.
+        fresh_m = events[1] if join_m is None else events[1] | join_m
     dev = state.device
     # The reference's core route: the fused kernel where its gate holds,
     # else the XLA chain (the plain core, 8-row groups when n % 32 != 0).
@@ -797,6 +924,13 @@ def sparse_tick(
         params.pallas_core and group == SPARSE_GROUP and S % 128 == 0
         and S < 1 << SLOT_BITS
     )
+    tracing = state.trace is not None
+    if tracing and use_kernel:
+        raise ValueError(
+            "flight-recorder tracing requires the XLA tick core: the fused "
+            "kernel does not expose the per-cell expiry mask the verdict "
+            "events need (set pallas_core=False or drop the trace ring)"
+        )
     fold = params.pallas_fold if use_kernel else frozenset()
     t = state.t_host + 1
     rng_next, k_tgt, k_ping, k_relay, k_gsel, k_glink, k_ssel, k_slink = (
@@ -821,10 +955,10 @@ def sparse_tick(
     if do_fd:
         fd_out = _fd_decide(
             p, plan, t, k_tgt, k_ping, k_relay, record_of, alive, state.epoch,
-            collect,
+            collect, trace=tracing,
         )
     else:
-        fd_out = _fd_zeros(n, collect, dev)
+        fd_out = _fd_zeros(n, collect, dev, trace=tracing)
     fd_tgt, fd_key, fd_fire, msgs_fd = fd_out[:4]
 
     # --------------------------------------------- 2. own-record SYNC
@@ -874,7 +1008,19 @@ def sparse_tick(
         req = req | fresh_m
     req = req & (subj_slot < 0)
     cap = params.alloc_cap
-    req_rank = torch.cumsum(req.to(_I32), 0, dtype=_I32) - 1
+    if join_m is not None:
+        # Elastic runs: fresh activations (join/restart) outrank the
+        # organic FD/SYNC/sweep requests, so a join never loses its
+        # announcing slot to a coincident sweep.
+        fresh_req = req & fresh_m
+        rank_fresh = torch.cumsum(fresh_req.to(_I32), 0, dtype=_I32) - 1
+        rank_rest = (
+            torch.cumsum((req & ~fresh_m).to(_I32), 0, dtype=_I32) - 1
+            + fresh_req.sum(dtype=_I32)
+        )
+        req_rank = torch.where(fresh_req, rank_fresh, rank_rest)
+    else:
+        req_rank = torch.cumsum(req.to(_I32), 0, dtype=_I32) - 1
     free = slot_subj < 0
     free_slots = _first_true(free, cap, S - 1)
     n_free = free.sum(dtype=_I32)
@@ -934,8 +1080,8 @@ def sparse_tick(
     if use_kernel:
         slab2, age, susp, self_rumor, aggr = sparse_core(*core_args, **consts)
     else:
-        slab2, age, susp, self_rumor, aggr = sparse_core_reference(
-            *core_args, **consts, group=group
+        slab2, age, susp, self_rumor, aggr, *expired = sparse_core_reference(
+            *core_args, **consts, group=group, expiry=tracing
         )
     # Per-slot aggregates (what the 'wb_mask' / 'view_rows' folds consume),
     # plus the corrections of the post-core steps below.
@@ -1027,6 +1173,54 @@ def sparse_tick(
         lat_s = _put_drop(lat_s, torch.where(first_s, slot_subj, n), t_vec)
         lat_d = _put_drop(lat_d, torch.where(first_d, slot_subj, n), t_vec)
 
+    # ------------------------------ 9.5 causal flight recorder
+    # Emission order within the tick is the causal order (probes, misses,
+    # suspicions, SYNC, verdicts, infections), so every ``cause`` points
+    # strictly backwards in the ring.
+    ring = state.trace
+    if ring is not None:
+        probing_tr, missed_tr, gone_tr = fd_out[-3:]
+        ring, sent_pos = trace_emit(ring, TK_PROBE_SENT, probing_tr, t, col, fd_tgt)
+        ring, miss_pos = trace_emit(
+            ring, TK_PROBE_MISSED, missed_tr, t, col, fd_tgt, cause=sent_pos
+        )
+        # Latest recorded miss per subject (the largest position wins).
+        ring = ring.replace(
+            last_miss=_max_drop(ring.last_miss, torch.where(miss_pos >= 0, fd_tgt, n), miss_pos)
+        )
+        # A fired SUSPECT verdict is caused by this row's missed round.
+        ring, susp_pos = trace_emit(
+            ring, TK_SUSPECT_START, fd_fire & ~gone_tr, t, col, fd_tgt, cause=miss_pos
+        )
+        # The verdict episode's origin per subject: the suspicion that
+        # started the countdown, or the probe that found a newer epoch.
+        origin = _max_drop(ring.origin, torch.where(susp_pos >= 0, fd_tgt, n), susp_pos)
+        gone_fire = fd_fire & gone_tr & (sent_pos >= 0)
+        origin = _max_drop(origin, torch.where(gone_fire, fd_tgt, n), sent_pos)
+        ring = ring.replace(origin=origin)
+        ring, _ = trace_emit(ring, TK_SYNC_ACCEPT, sy_accept, t, col, sy_subj)
+        # Per-viewer verdict transitions, post-load snapshot vs final slab.
+        viewer_live_tr = alive[:, None] & active[None, :]
+        subj_row = slot_subj[None, :]
+        cause_row = ring.origin[torch.clamp(slot_subj, 0, n - 1).long()][None, :]
+        ring, _ = trace_emit(
+            ring, TK_VERDICT_DEAD,
+            is_dead_key(slab2) & ~is_dead_key(slab0) & viewer_live_tr,
+            t, col[:, None], subj_row, cause=cause_row,
+            aux=expired[0].to(torch.int8) * (DEAD_VIA_EXPIRY - DEAD_VIA_GOSSIP) + DEAD_VIA_GOSSIP,
+        )
+        ring, _ = trace_emit(
+            ring, TK_VERDICT_ALIVE,
+            is_alive_key(slab2) & ~is_alive_key(slab0) & (slab0 >= 0) & viewer_live_tr,
+            t, col[:, None], subj_row, cause=cause_row,
+        )
+        # User-gossip infection edges (injected ones were recorded with the
+        # events, where they are still visible).
+        ring, _ = trace_emit(
+            ring, TK_GOSSIP_EDGE, new_seen & ~state.useen, t, col[:, None],
+            torch.arange(state.useen.shape[1], dtype=_I32, device=dev)[None, :],
+        )
+
     # The pin mask is carried only under the 'wb_mask' fold; else it is
     # flagged stale and the next free decision recomputes it.
     carry = state.wb_pinned is not None and "wb_mask" in fold
@@ -1048,6 +1242,7 @@ def sparse_tick(
         lat_first_dead=lat_d,
         wb_pinned=pin_k | pin_extra if carry else state.wb_pinned,
         wb_valid=None if state.wb_valid is None else torch.full_like(state.wb_valid, carry),
+        trace=ring,
     )
     if not collect:
         return new_state, {"tick": tick}
@@ -1113,18 +1308,18 @@ def sparse_tick(
         "fault_lost": acct[3],
         "inc_max": inc_self.max(),
         "epoch_max": state.epoch.max(),
+        # Elastic membership: the tick's join activations and the
+        # live-member gauge (zero on a fixed-shape cluster).
+        "joins_admitted": count(join_m) if join_m is not None else zero,
+        "n_live": count(new_state.live_mask) if new_state.live_mask is not None else zero,
     }
-    # Schema slots of other engines and of the serving / elastic / fleet
-    # planes: constant zero on a fixed-shape offline SWIM tick.
-    for key in (
-        "view_changes", "alarms_raised", "cut_detected", "fallback_rounds",
-        "fallback_commits", "join_requests", "join_confirms",
-        "exchange_overflow", "ingest_overflow", "ingest_rejected",
-        "ingest_backpressure", "serve_batches", "joins_admitted",
-        "joins_deferred", "promotions", "n_live", "tenants_active",
-        "tenants_deferred", "tenant_evictions", "fleet_launches",
-    ):
-        metrics[key] = zero
+    # The schema's slots of other engines and of the serving / fleet planes:
+    # constant zero on an offline SWIM tick.
+    for key in SHARED_COUNTERS:
+        metrics.setdefault(key, zero)
+    if ring is not None:
+        # Lossless ring accounting: events the bounded ring could not hold.
+        metrics["trace_overflow"] = ring.overflow
     return new_state, metrics
 
 
@@ -1143,15 +1338,18 @@ def run_sparse_ticks(
     ``kills_fired``, ``restarts_fired`` and, with a world, the ``zone_*``
     gauges. With ``params.in_scan_writeback=False`` it never frees slots —
     use :func:`run_sparse_chunked` or call :func:`writeback_free` between
-    runs. Consumes ``state``."""
+    runs. An elastic state (``live_mask``) fires the schedule's joins too
+    and its collected traces add ``joins_fired``. Consumes ``state``."""
     scheduled = check_plan(plan)
-    extra = ScheduleTraces(plan) if scheduled and collect else None
+    # Elastic states fire the schedule's join lane too.
+    elastic = state.live_mask is not None
+    extra = ScheduleTraces(plan, joins=elastic) if scheduled and collect else None
     per_tick = []
     for _ in range(n_ticks):
         plan_t, events = plan, None
         if scheduled:
             plan_t, events = scheduled_inputs(
-                plan, state.t_host + 1, params.base.n, state.device, extra
+                plan, state.t_host + 1, params.base.n, state.device, extra, joins=elastic
             )
         state, metrics = sparse_tick(
             params, state, plan_t, collect=collect, events=events, knobs=knobs

@@ -33,6 +33,7 @@ import torch
 
 from scalecube_cluster_tpu_torch import prng
 from scalecube_cluster_tpu_torch.cluster_api.member import MemberStatus
+from scalecube_cluster_tpu_torch.obs.counters import SHARED_COUNTERS
 from scalecube_cluster_tpu_torch.ops.delivery import (
     GROUP,
     deliver_rows_max,
@@ -74,17 +75,6 @@ _SUSPECT = int(MemberStatus.SUSPECT)
 _DEAD = int(MemberStatus.DEAD)
 
 _I32 = torch.int32
-
-#: Metric slots of other engines and of the serving / elastic / fleet
-#: planes: constant zero on a SWIM tick.
-ZERO_METRICS = (
-    "view_changes", "alarms_raised", "cut_detected", "fallback_rounds",
-    "fallback_commits", "join_requests", "join_confirms",
-    "exchange_overflow", "ingest_overflow", "ingest_rejected",
-    "ingest_backpressure", "serve_batches", "joins_admitted",
-    "joins_deferred", "promotions", "n_live", "tenants_active",
-    "tenants_deferred", "tenant_evictions", "fleet_launches",
-)
 
 
 def _link_acct(att, blk, passed):
@@ -602,8 +592,10 @@ def sim_tick(
         "inc_max": inc_self.max(),
         "epoch_max": state.epoch.max(),
     }
+    # The schema's slots of other engines and of the serving / elastic /
+    # fleet planes: constant zero on a SWIM tick.
     zero = torch.zeros((), dtype=_I32, device=dev)
-    for key in ZERO_METRICS:
-        metrics[key] = zero
+    for key in SHARED_COUNTERS:
+        metrics.setdefault(key, zero)
     return new_state, metrics
 

@@ -7,6 +7,13 @@ this module."""
 
 from __future__ import annotations
 
+import fcntl
+import hashlib
+import os
+import pickle
+import tempfile
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -207,6 +214,48 @@ def tile_edge_persistent_operands(n: int, s: int, f: int = 3, k_max: int = 8,
     ops["age"] = np.where(wide, rng.integers(-128, 128, (n, s)), ops["age"]).astype(np.int8)
     ops["susp"] = np.where(wide, rng.integers(-600, 600, (n, s)), ops["susp"]).astype(np.int16)
     return ops
+
+
+def one_cpu_thread() -> None:
+    """Run this process's CPU tensor work on one intra-op thread. The parity
+    tests run in several worker processes side by side, and torch would
+    otherwise give each of them a pool of one thread per core, whose
+    spinning threads crowd out the other workers' JAX references."""
+    torch.set_num_threads(1)
+
+
+def shared_result(key: str, compute):
+    """``compute()`` once per test run across the run's worker processes.
+
+    The parity tests hold the port against reference trajectories that
+    take tens of seconds each; a run spread over several workers
+    (pytest-xdist, which names the run in ``PYTEST_XDIST_TESTRUNUID``)
+    would otherwise compute one in every worker that runs a test of it.
+    The first worker to ask takes an exclusive ``flock`` on the key's lock
+    file, computes and pickles the result into the run's directory under
+    the temporary directory; the others block on the lock and read the
+    file. The kernel drops the lock when its holder exits, so a worker that
+    dies computing leaves nothing to wait for: the next one computes. Outside
+    such a run, this is ``compute()``. The result must be picklable (numpy
+    arrays, dicts, lists)."""
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    if not run:
+        return compute()
+    root = Path(tempfile.gettempdir()) / f"scalecube-torch-refs-{run}"
+    root.mkdir(exist_ok=True)
+    name = hashlib.sha1(key.encode()).hexdigest()
+    done = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if done.exists():
+            with open(done, "rb") as fh:
+                return pickle.load(fh)
+        value = compute()
+        part = root / f"{name}.{os.getpid()}.part"
+        with open(part, "wb") as fh:
+            pickle.dump(value, fh)
+        os.replace(part, done)
+        return value
 
 
 def misaligned(t: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,8 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from scalecube_cluster_tpu.sim import checkpoint as JC
 from scalecube_cluster_tpu.sim import run as JR
 from scalecube_cluster_tpu.sim import sparse as J
@@ -39,6 +41,10 @@ from tests.test_torch_sparse import (
     port_params,
 )
 from tests.test_sparse import sparse_params
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread, shared_result
+from tests.test_torch_dense import jax_state_dict as dense_dict
+
+one_cpu_thread()
 
 N, S = 64, 128
 
@@ -58,9 +64,15 @@ def assert_same_archive(a, b):
 
 def _dense_jax():
     jp = small_params(N, suspicion_ticks=12)
-    js = JS.kill(JS.init_full_view(N), 5)
-    js, _ = JR.run_ticks(jp, js, JPlan.uniform(10.0), JS.seeds_mask(N, [0, 1]), 9, collect=False)
-    return js, jp
+
+    def compute():
+        js = JS.kill(JS.init_full_view(N), 5)
+        js, _ = JR.run_ticks(jp, js, JPlan.uniform(10.0), JS.seeds_mask(N, [0, 1]), 9,
+                             collect=False)
+        return dense_dict(js)
+
+    d = shared_result("test_torch_checkpoint._dense_jax", compute)
+    return JS.SimState(**{k: jnp.asarray(v) for k, v in d.items()}), jp
 
 
 def _dense_port():
@@ -74,8 +86,14 @@ def _dense_port():
 def _sparse_jax():
     jp = dataclasses.replace(sparse_params(N, suspicion_ticks=12), slot_budget=S,
                              in_scan_writeback=False)
-    js = J.kill_sparse(J.init_sparse_full_view(N, S, record_latency=True), 5)
-    js, _ = J.run_sparse_chunked(jp, js, JPlan.uniform(10.0), 18, chunk=9)
+
+    def compute():
+        js = J.kill_sparse(J.init_sparse_full_view(N, S, record_latency=True), 5)
+        js, _ = J.run_sparse_chunked(jp, js, JPlan.uniform(10.0), 18, chunk=9)
+        return jax_state_dict(js)
+
+    d = shared_result("test_torch_checkpoint._sparse_jax", compute)
+    js = J.SparseState(**{k: jnp.asarray(v) for k, v in d.items()})
     # Switches the port carries unread, set away from their defaults.
     return js, dataclasses.replace(
         jp, pallas_core=True, pallas_fold=frozenset({"countdown", "wb_mask"})
@@ -188,15 +206,17 @@ def test_pack_cold_refuses_out_of_range_countdowns(tmp_path):
 
 
 def test_elastic_archive_is_refused(tmp_path):
-    """An archive holding ``live_mask`` (an elastic state) raises
-    NotImplementedError in the port."""
+    """An archive holding ``live_mask`` (an elastic state), which the port
+    refused before elastic states were ported, now loads with its
+    ``live_mask`` and, written again by the port, is the same archive."""
     js, jp = _sparse_jax()
-    import jax.numpy as jnp
-
-    js = js.replace(live_mask=jnp.ones((N,), bool))
+    live = np.arange(N) < N - 8
+    js = js.replace(live_mask=jnp.asarray(live))
     JC.save_sparse_checkpoint(tmp_path / "e", js, jp)
-    with pytest.raises(NotImplementedError, match="live_mask"):
-        TC.load_sparse_checkpoint(tmp_path / "e", device="cpu")
+    ts, tp = TC.load_sparse_checkpoint(tmp_path / "e", device="cpu")
+    assert np.array_equal(ts.live_mask.numpy(), live)
+    TC.save_sparse_checkpoint(tmp_path / "p", ts, tp)
+    assert_same_archive(read_archive(tmp_path / "e.npz"), read_archive(tmp_path / "p.npz"))
 
 
 @pytest.mark.parametrize(
@@ -236,7 +256,8 @@ def test_port_resumes_jax_packed_checkpoint():
     jp = dataclasses.replace(sparse_params(n, suspicion_ticks=12), slot_budget=s,
                              in_scan_writeback=False, pallas_core=True)
     js = J.kill_sparse(J.init_sparse_full_view(n, s, record_latency=True), 5)
-    js, _ = J.run_sparse_chunked(jp, js, JPlan.uniform(10.0), 24, chunk=12)
+    # 6-tick chunks throughout: the reference compiles one scan for the run.
+    js, _ = J.run_sparse_chunked(jp, js, JPlan.uniform(10.0), 24, chunk=6)
     buf = io.BytesIO()
     JC.save_sparse_checkpoint(buf, js, jp, pack_cold=True)
     buf.seek(0)

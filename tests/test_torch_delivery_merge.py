@@ -22,6 +22,9 @@ from scalecube_cluster_tpu_torch.testing import (
     random_tick_operands,
     tile_edge_merge_operands,
 )
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 FIELDS = ("rows", "view0", "ginv", "rots", "edge_ok", "alive")
 

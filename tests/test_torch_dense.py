@@ -37,6 +37,9 @@ from scalecube_cluster_tpu_torch.sim.faults import FaultPlan as TPlan
 from scalecube_cluster_tpu_torch.sim.params import SimParams as TSimParams
 from scalecube_cluster_tpu_torch.sim.tick import sim_tick
 from tests.test_sim import small_params
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread, shared_result
+
+one_cpu_thread()
 
 CHUNK = 12
 
@@ -92,16 +95,20 @@ def jax_run(name, jp, make_state, seeds, chunks, collect=True, between=()):
     initial state dict and (state dict, traces) after each chunk, with
     ``between[c]`` applied after chunk c."""
     if name not in _JAX_RUNS:
-        js = make_state(JS)
-        snaps = [(jax_state_dict(js), None)]
-        jplan = JPlan.uniform(10.0)
-        jseeds = JS.seeds_mask(jp.n, seeds)
-        for c in range(chunks):
-            js, jtr = J.run_chunked(jp, js, jplan, jseeds, CHUNK, chunk=CHUNK, collect=collect)
-            snaps.append((jax_state_dict(js), jtr))
-            if c < len(between):
-                js = between[c](js, JS)
-        _JAX_RUNS[name] = snaps
+        def compute():
+            js = make_state(JS)
+            snaps = [(jax_state_dict(js), None)]
+            jplan = JPlan.uniform(10.0)
+            jseeds = JS.seeds_mask(jp.n, seeds)
+            for c in range(chunks):
+                js, jtr = J.run_chunked(jp, js, jplan, jseeds, CHUNK, chunk=CHUNK,
+                                        collect=collect)
+                snaps.append((jax_state_dict(js), {k: np.asarray(v) for k, v in jtr.items()}))
+                if c < len(between):
+                    js = between[c](js, JS)
+            return snaps
+
+        _JAX_RUNS[name] = shared_result(f"test_torch_dense.jax_run.{name!r}", compute)
     return _JAX_RUNS[name]
 
 

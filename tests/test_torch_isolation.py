@@ -10,6 +10,9 @@ import sys
 from pathlib import Path
 
 import pytest
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "scalecube_cluster_tpu_torch"
@@ -43,8 +46,11 @@ def test_sources_exist():
     assert "scalecube_cluster_tpu_torch/sim/sparse.py" in names
     assert "scalecube_cluster_tpu_torch/ops/sparse_core.py" in names
     for module in ("ops/sparse_persistent.py", "ops/delivery_merge.py",
-                   "sim/checkpoint.py", "tools/__init__.py",
-                   "tools/profile_tick.py", "tools/probe_kernels.py"):
+                   "sim/checkpoint.py", "sim/monitor.py", "tools/__init__.py",
+                   "tools/profile_tick.py", "tools/probe_kernels.py",
+                   "tools/trace_explain.py", "obs/__init__.py", "obs/counters.py",
+                   "obs/export.py", "obs/latency.py", "obs/profiling.py",
+                   "obs/slo.py", "obs/trace.py", "obs/tracer.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 

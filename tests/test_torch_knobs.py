@@ -30,6 +30,9 @@ from tests.test_torch_dense import assert_same_traces as dense_traces
 from tests.test_torch_dense import jax_state_dict as dense_dict
 from tests.test_torch_dense import params as dense_params
 from tests.test_torch_sparse import assert_same_state, assert_same_traces, port_params
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 POINTS = [(1.0, None), (0.5, 2), (2.25, 1), (1.7, 0)]
 

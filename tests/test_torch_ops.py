@@ -36,6 +36,9 @@ from scalecube_cluster_tpu_torch.sim import usergossip as t_ug
 from scalecube_cluster_tpu_torch.sim.convert import dense_state_from_numpy, dense_state_to_numpy
 from scalecube_cluster_tpu_torch.sim.params import SimParams as TSimParams
 from scalecube_cluster_tpu_torch.sim.sparse import SparseParams as TSparseParams
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _eq(jax_out, torch_out):

@@ -13,6 +13,9 @@ import pytest
 import torch
 
 from scalecube_cluster_tpu_torch import prng
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 SEEDS = (0, 1, 7, 12345, 2**31 - 1)
 #: Shapes the engine draws, plus sizes that are not powers of 2.

@@ -16,6 +16,9 @@ import torch
 from scalecube_cluster_tpu_torch.testing import misaligned
 from scalecube_cluster_tpu_torch.tools import core_timing
 from scalecube_cluster_tpu_torch.tools import probe_kernels as pk
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 
 def _expect(name, ops, out_rows=pk.WINDOW_OUT_ROWS):

@@ -39,6 +39,9 @@ from tests.test_torch_dense import jax_state_dict as dense_dict
 from tests.test_torch_dense import params as dense_params
 from tests.test_torch_sparse import assert_same_state, assert_same_traces, port_params
 from tests.test_torch_topology import same, same_world
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 #: The two packages' schedule vocabularies, side by side.
 JAX = dict(Plan=JPlan, World=JWorld, Builder=JSch.ScheduleBuilder, dev={})

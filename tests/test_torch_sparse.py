@@ -23,6 +23,9 @@ from scalecube_cluster_tpu_torch.sim.convert import (
 from scalecube_cluster_tpu_torch.sim.faults import FaultPlan as TPlan
 from scalecube_cluster_tpu_torch.sim.params import SimParams as TSimParams
 from tests.test_sparse import sparse_params
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread, shared_result
+
+one_cpu_thread()
 
 
 def port_params(jp):
@@ -114,13 +117,18 @@ def jax_bench_run(n, S, ticks=60, chunk=20):
     against this one run."""
     if (n, S) not in _JAX_BENCH:
         jp = J.SparseParams.for_n(n, slot_budget=S, in_scan_writeback=False, pallas_core=True)
-        js = J.kill_sparse(J.init_sparse_full_view(n, S), 7)
-        snaps = [(jax_state_dict(js), None)]
-        for _ in range(ticks // chunk):
-            js, jtr = J.run_sparse_chunked(
-                jp, js, JPlan.uniform(5.0), chunk, chunk=chunk, collect=True
-            )
-            snaps.append((jax_state_dict(js), jtr))
+
+        def compute():
+            js = J.kill_sparse(J.init_sparse_full_view(n, S), 7)
+            snaps = [(jax_state_dict(js), None)]
+            for _ in range(ticks // chunk):
+                js, jtr = J.run_sparse_chunked(
+                    jp, js, JPlan.uniform(5.0), chunk, chunk=chunk, collect=True
+                )
+                snaps.append((jax_state_dict(js), {k: np.asarray(v) for k, v in jtr.items()}))
+            return snaps
+
+        snaps = shared_result(f"test_torch_sparse.jax_bench_run.{n}.{S}.{ticks}.{chunk}", compute)
         _JAX_BENCH[(n, S)] = (jp, chunk, snaps)
     return _JAX_BENCH[(n, S)]
 

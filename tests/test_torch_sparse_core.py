@@ -17,6 +17,9 @@ import torch
 from scalecube_cluster_tpu_torch.ops import cuda_build
 from scalecube_cluster_tpu_torch.ops import sparse_core as sc
 from scalecube_cluster_tpu_torch.testing import misaligned, random_operands, tile_edge_operands
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 FOLD = frozenset({"countdown", "points", "wb_mask", "view_rows"})
 CONSTS = dict(spread=6, susp_ticks=20, age_stale=120, sweep=14)

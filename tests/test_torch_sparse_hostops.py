@@ -25,6 +25,9 @@ from scalecube_cluster_tpu_torch.sim import sparse as T
 from scalecube_cluster_tpu_torch.sim.convert import sparse_state_from_numpy
 from tests.test_sparse import sparse_params
 from tests.test_torch_sparse import assert_same_state, jax_state_dict
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread, shared_result
+
+one_cpu_thread()
 
 _MID = {}
 
@@ -34,13 +37,16 @@ def mid_run():
     10% loss, the latency recorder on, a host-boundary free after tick 12):
     slots active, timers armed, the pin mask carried. Cached; each test gets fresh copies on both sides."""
     if not _MID:
-        jp = dataclasses.replace(sparse_params(64, slot_budget=128, suspicion_ticks=12),
-                                 in_scan_writeback=False, pallas_core=True)
-        js = J.kill_sparse(J.init_sparse_full_view(64, 128, user_gossip_slots=2,
-                                                   record_latency=True), 5)
-        js, _ = J.run_sparse_chunked(jp, js, JPlan.uniform(10.0), 12, chunk=12)
-        js, _ = J.run_sparse_ticks(jp, js, JPlan.uniform(10.0), 12)
-        _MID["d"] = jax_state_dict(js)
+        def compute():
+            jp = dataclasses.replace(sparse_params(64, slot_budget=128, suspicion_ticks=12),
+                                     in_scan_writeback=False, pallas_core=True)
+            js = J.kill_sparse(J.init_sparse_full_view(64, 128, user_gossip_slots=2,
+                                                       record_latency=True), 5)
+            js, _ = J.run_sparse_chunked(jp, js, JPlan.uniform(10.0), 12, chunk=12)
+            js, _ = J.run_sparse_ticks(jp, js, JPlan.uniform(10.0), 12)
+            return jax_state_dict(js)
+
+        _MID["d"] = shared_result("test_torch_sparse_hostops.mid_run", compute)
     d = _MID["d"]
     js = J.SparseState(**{k: jnp.asarray(v) for k, v in d.items()})
     return js, sparse_state_from_numpy(d, device="cpu")
@@ -118,5 +124,12 @@ def test_apply_events_sparse_matches_jax(gossip):
         J.apply_events_sparse(js, *map(jnp.asarray, none)),
         T.apply_events_sparse(ts, *map(torch.from_numpy, none)), "no event",
     )
-    with pytest.raises(NotImplementedError, match="A9"):
-        T.apply_events_sparse(ts, *tev[:2], None, torch.from_numpy(restart))
+    # The 4-tuple (a join mask, here on a fixed-shape state: fresh
+    # identities without a live_mask to set) as the reference applies it.
+    join = np.zeros(n, bool)
+    join[[12, 60]] = True
+    assert_same_state(
+        J.apply_events_sparse(js, *jev[:2], jev[2] if gossip else None, jnp.asarray(join)),
+        T.apply_events_sparse(ts, *tev[:2], tev[2] if gossip else None, torch.from_numpy(join)),
+        "join",
+    )

@@ -22,6 +22,9 @@ from scalecube_cluster_tpu_torch.testing import (
     persistent_operands,
     tile_edge_persistent_operands,
 )
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 KW = dict(spread=6, susp_ticks=20, age_stale=120, sweep=6)
 OUTPUTS = ("slab", "age", "susp", "self_rumor", "aggr")

@@ -28,6 +28,9 @@ from tests.test_torch_sparse import (
     jax_state_dict,
     port_params,
 )
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 _RUN = {}
 

@@ -22,6 +22,9 @@ from scalecube_cluster_tpu_torch.testing import (
     random_tick_operands,
     tile_edge_tick_operands,
 )
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 CONSTS = dict(spread=6, sweep=14, susp_ticks=20, age_stale=120)
 OUTPUTS = ("view2", "age2", "susp2", "rows_next", "self_rumor", "known_cnt")

@@ -19,6 +19,9 @@ from scalecube_cluster_tpu.sim import faults as JF
 from scalecube_cluster_tpu.sim import topology as JT
 from scalecube_cluster_tpu_torch.sim import faults as TF
 from scalecube_cluster_tpu_torch.sim import topology as TT
+from scalecube_cluster_tpu_torch.testing import one_cpu_thread
+
+one_cpu_thread()
 
 
 def same(a, b, what=""):
@@ -151,6 +154,100 @@ def test_plan_builder_errors_match_jax():
         with pytest.raises(ValueError) as te:
             build(TF.FaultPlan, "cpu")
         assert str(je.value) == str(te.value)
+
+
+_VECTOR_LOOP = (
+    "XLA:CPU emits a vector loop for this fusion that rounds 1 - (1-p)(1-q) "
+    "twice on its body and once in its scalar tail; which fusions get one, "
+    "and its width, follow the host's vector unit and XLA's loop emitter, "
+    "which the port does not see (ROADMAP Queue C)"
+)
+_LEG_TAIL = (
+    "on x86-64 with AVX-512, where this map was made, XLA:CPU's vector loop "
+    "for a dense plan's [N, 2] legs covers 16 cells an iteration and its "
+    "scalar tail rounds 1 - (1-p)(1-q) once on the cells past the last whole "
+    "iteration; the port rounds every [N, 2] cell twice, as the loop body "
+    "does, since that width follows the host's vector unit (ROADMAP Queue C)"
+)
+
+#: Edge shape classes of ``edge_loss`` with a world: (plan, outer, inner,
+#: layout of src/dst). The engines' sets ([N]; the relay legs [N, 3], and
+#: a dense plan's two-relay legs [N, 2] at n % 8 == 0) round as the
+#: reference does; the legs' scalar tail at n % 8 != 0 and the wider inner
+#: dimensions, which no engine produces, are held as strict xfails.
+EDGE_CLASSES = {
+    "flat-uniform": ("uniform", 40, None, "flat"),
+    "flat-dense": ("dense", 120, None, "flat"),
+    "relays3-uniform": ("uniform", 40, 3, "row"),
+    "relays3-dense": ("dense", 30, 3, "col"),
+    "legs2-uniform": ("uniform", 40, 2, "row"),
+    "legs2-dense": ("dense", 40, 2, "row"),
+    "legs2-dense-tail-30": ("dense", 30, 2, "row"),
+    "legs2-dense-tail-33": ("dense", 33, 2, "col"),
+    "legs2-dense-tail-100": ("dense", 100, 2, "both"),
+    "inner5-uniform": ("uniform", 40, 5, "row"),
+    "inner4-uniform": ("uniform", 40, 4, "row"),
+    "inner6-uniform": ("uniform", 40, 6, "col"),
+    "inner8-uniform": ("uniform", 40, 8, "row"),
+    "inner4-uniform-tail": ("uniform", 30, 4, "bcast"),
+    "inner4-dense": ("dense", 40, 4, "row"),
+    "inner8-dense": ("dense", 40, 8, "col"),
+}
+_XFAIL_EDGE = {
+    **dict.fromkeys(("legs2-dense-tail-30", "legs2-dense-tail-33", "legs2-dense-tail-100"),
+                    _LEG_TAIL),
+    **dict.fromkeys(("inner4-uniform", "inner6-uniform", "inner8-uniform",
+                     "inner4-uniform-tail", "inner4-dense", "inner8-dense"), _VECTOR_LOOP),
+}
+
+
+def _edge_class_case(name):
+    kind, outer, inner, layout = EDGE_CLASSES[name]
+    rng = np.random.default_rng(11)
+    n = 40
+    loss = rng.uniform(0.0, 0.3, (n, n)).astype(np.float32)
+    zone_loss = rng.uniform(0.0, 0.3, (3, 3)).astype(np.float32)
+    plans = []
+    for F, T_, d in ((JF, JT, {}), (TF, TT, {"device": "cpu"})):
+        if kind == "uniform":
+            plan = F.FaultPlan.uniform(3.0, **d)
+        else:
+            plan = F.FaultPlan.clean(n, **d).with_loss(3.0)
+            arr = jnp.asarray(loss) if F is JF else torch.from_numpy(loss)
+            plan = plan.replace(loss=arr)
+        world = T_.LinkWorld.even_zones(n, 3, **d)
+        zl = jnp.asarray(zone_loss) if F is JF else torch.from_numpy(zone_loss)
+        plans.append(plan.with_link_world(world.replace(loss=zl)))
+    shapes = {
+        "flat": ((outer,), (outer,)),
+        "row": ((outer, 1), (outer, inner)),
+        "col": ((outer, inner), (outer, 1)),
+        "both": ((outer, inner), (outer, inner)),
+        "bcast": ((outer, inner), (1, inner)),
+    }[layout]
+    src = rng.integers(0, n, shapes[0]).astype(np.int32)
+    dst = rng.integers(0, n, shapes[1]).astype(np.int32)
+    return plans, src, dst
+
+
+@pytest.mark.parametrize("name", [
+    pytest.param(k, marks=pytest.mark.xfail(strict=True, reason=_XFAIL_EDGE[k]))
+    if k in _XFAIL_EDGE else k
+    for k in EDGE_CLASSES
+])
+def test_edge_loss_rounding_by_shape(name):
+    """``edge_loss`` with a world, per edge shape class, against the
+    reference under ``jax.jit``; each case holds cells where one and two
+    roundings of the composition differ."""
+    (jp, tp), src, dst = _edge_class_case(name)
+    want = np.asarray(jax.jit(JF.edge_loss)(jp, jnp.asarray(src), jnp.asarray(dst)))
+    p = np.asarray(JF._edge_lookup(jp.loss, jnp.asarray(src), jnp.asarray(dst)))
+    z = np.asarray(jp.link_world.zone)
+    q = np.asarray(jp.link_world.loss)[z[src], z[dst]]
+    a, b = np.float32(1) - p, np.float32(1) - q
+    once = (-(a.astype(np.float64)) * b.astype(np.float64) + 1.0).astype(np.float32)
+    assert np.any(once != np.float32(1) - a * b), "no cell tells the roundings apart"
+    same(want, TF.edge_loss(tp, torch.from_numpy(src), torch.from_numpy(dst)), name)
 
 
 def test_xla_exp_matches_xla_cpu():
