@@ -122,7 +122,28 @@ Phases, each of which must pass (any failure exits non-zero):
     calls of one traced and one untraced chunk (the traced one makes no
     more), and a 528-tick run with a 1 << 27 ring whose decoded chains pass
     the C6 walk, every DEAD verdict's chain ending at a probe;
-21. the kernel table as one JSON line, the card's name and power limit,
+21. both fused cores over a leading universe axis (the grid's third
+    axis): ``sparse_core`` at B=4, n=32768, S=512 and at B=3, n=1024,
+    S=256 on tile-edge operands per universe; ``tick_core`` at B=16,
+    n=1024 and at B=3, n=264 (tile edges) — each batched launch bit-equal
+    to the batched plain version and to one launch per universe; its time
+    beside one universe's launch and B times the single bound;
+22. ensembles, card vs CPU: B=3 dense universes at n=256 under
+    per-universe timelines (kills, a restart each, so one universe joins
+    while the others do not) with knobs on the XLA core, then on the
+    fused route without knobs; B=3 sparse universes at n=1024, S=256 on the
+    XLA chain with knobs and on the kernel route — every leaf of every
+    universe and every [B, T] trace equal after every chunk, and the
+    ``ensemble_report`` rows equal;
+23. the sparse ensemble at the main path's width: B=4 universes of
+    n=32768, S=512 through the kernel (member 7 killed in each, 5% loss),
+    one warm-up and four timed 48-tick chunks with
+    ``ensemble_writeback_free`` between them, then one collected chunk —
+    ``sparse_core`` launched once a tick for the whole batch; ms/tick,
+    universes·member·rounds/s, peak memory, then launches a tick and the
+    device idle share under the profiler; and the ``--ensemble 16 1024``
+    rung beside the same rung at B=1;
+24. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
@@ -1850,8 +1871,289 @@ def phase_recorder_full_width(torch):
             "certify_ms_per_tick": run_s / ticks * 1e3, "deads": len(deads)}
 
 
-def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None):
-    return {
+def _stack_ops(torch, sets):
+    """Seeded numpy operand sets, one per universe, stacked on the card."""
+    import numpy as np
+
+    return {k: torch.from_numpy(np.stack([o[k] for o in sets])).cuda() for k in sets[0]}
+
+
+def phase_batched_kernels(torch):
+    """Phase 21: both fused cores over a leading universe axis (the grid's
+    third axis) vs their batched plain versions and vs one launch per
+    universe, with times beside B times the single bound."""
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core, sparse_core_reference
+    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core, tick_core_reference
+    from scalecube_cluster_tpu_torch.testing import (
+        random_operands,
+        random_tick_operands,
+        tile_edge_operands,
+        tile_edge_tick_operands,
+    )
+
+    rows = {"sparse_core": [], "tick_core": []}
+    cases = (
+        ("sparse_core", sparse_core, sparse_core_reference,
+         dict(spread=48, susp_ticks=400, age_stale=120, sweep=98),
+         ("slab2", "age2", "susp2", "self_rumor", "aggr"),
+         ((4, 32768, 512, lambda u: random_operands(32768, 512, 3, seed=20 + u)),
+          (3, 1024, 256, lambda u: tile_edge_operands(1024, 256, 3, seed=30 + u)))),
+        ("tick_core", tick_core, tick_core_reference,
+         dict(spread=42, sweep=86, susp_ticks=350, age_stale=120),
+         ("view2", "age2", "susp2", "rows_next", "self_rumor", "known_cnt"),
+         ((16, 1024, None, lambda u: random_tick_operands(1024, 3, seed=40 + u, susp_ticks=350)),
+          (3, 264, None, lambda u: tile_edge_tick_operands(264, 3, seed=50 + u,
+                                                           susp_ticks=350)))),
+    )
+    for name, kernel, plain, consts, outs, shapes in cases:
+        for b, n, s, make in shapes:
+            ops = _stack_ops(torch, [make(u) for u in range(b)])
+            args = tuple(ops.values())
+            got = kernel(*args, **consts)
+            want = plain(*args, **consts)
+            torch.cuda.synchronize()
+            shape = f"B={b} n={n}" + (f" S={s}" if s else "")
+            err = _compare(outs, got, want, f"of batched {name} at {shape}")
+            for u in range(b):
+                one = kernel(*(a[u] for a in args), **consts)
+                _compare(outs, [g[u] for g in got], one,
+                         f"of batched {name} vs its single launch on universe {u} at {shape}")
+            del got, want
+            single_args = tuple(a[0] for a in args)
+            big = n * (s or n) > 1 << 20
+            reps_k, reps_p = (20, 3) if big else (100, 10)
+            k_ms = _time_cuda(torch, lambda: kernel(*args, **consts), reps_k)
+            one_ms = _time_cuda(torch, lambda: kernel(*single_args, **consts), reps_k)
+            p_ms = _time_cuda(torch, lambda: plain(*args, **consts), reps_p)
+            if name == "sparse_core":
+                work = core_work({k: v[0] for k, v in ops.items()})
+            else:
+                work = dense_core_work({k: v[0] for k, v in ops.items()})[:2]
+            single = _bound_row(*work)
+            row = {"B": b, "n": n, "S": s, "max_abs_err": err, "ms": k_ms, "single_ms": one_ms,
+                   "plain_ms": p_ms, "bound_ms": b * single["bound_ms"],
+                   "bound_by": single["bound_by"], "single_bound_ms": single["bound_ms"]}
+            rows[name].append(row)
+            say(f"[21] {name} {shape} f=3: one launch for the batch, bit-equal to the "
+                f"batched plain version and to {b} single launches (max_abs_err {err}); "
+                f"batched {k_ms:.4f} ms, one universe alone {one_ms:.4f} ms "
+                f"({k_ms / one_ms:.2f}x for {b}x the work), plain {p_ms:.4f} ms, bound "
+                f"{row['bound_ms']:.4f} ms by {single['bound_by']} ({b} x "
+                f"{single['bound_ms']:.4f} ms)")
+            del ops, args, single_args
+    return rows
+
+
+def _ensemble_schedules(n, b, device):
+    """Per-universe timelines of equal shape: universe u has 3+u % loss,
+    then 1% loss with 3 ms mean delay from tick 20+2u; kills of 7+u at tick
+    4+u and of 40+u at 9+u; a restart (a joiner in the dense engine) of
+    7+u at tick 26+5u."""
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+
+    return [
+        ScheduleBuilder(n)
+        .add_segment(1, FaultPlan.uniform(3.0 + u, device=device))
+        .add_segment(20 + 2 * u, FaultPlan.uniform(1.0, 3.0, device=device))
+        .kill(4 + u, 7 + u).kill(9 + u, 40 + u).restart(26 + 5 * u, 7 + u)
+        .build()
+        for u in range(b)
+    ]
+
+
+def phase_ensemble_card_vs_cpu(torch):
+    """Phase 22: ensembles on the card equal the same ensembles on the CPU:
+    every leaf of every universe and every [B, T] trace after every chunk,
+    and the ensemble_report rows."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.obs.ensemble import ensemble_report
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
+    from scalecube_cluster_tpu_torch.sim import ensemble as ens
+    from scalecube_cluster_tpu_torch.sim import state as dense
+    from scalecube_cluster_tpu_torch.sim.convert import (
+        dense_state_to_numpy,
+        sparse_state_to_numpy,
+    )
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+
+    b, ticks, chunk = 3, 60, 12
+    n = 256
+    base = SimParams(
+        n=n, gossip_fanout=3, periods_to_spread=8, periods_to_sweep=18,
+        fd_period_ticks=2, sync_period_ticks=10, suspicion_ticks=12,
+        ping_req_members=2, user_gossip_slots=2,
+    )
+    launches = {}
+    for tag, params, knob_mults in (
+        ("dense XLA core, knobs", base, (1.0, 1.5, 0.5)),
+        ("dense fused route", dataclasses.replace(base, pallas_delivery=True), None),
+    ):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            states = ens.init_ensemble_dense(n, range(5, 5 + b), user_gossip_slots=2, device=dev)
+            plans = ens.stack_universes(_ensemble_schedules(n, b, dev))
+            seeds = dense.seeds_mask(n, [0, 1], device=dev)
+            knobs = None if knob_mults is None else ens.knob_grid(
+                params, suspicion_mults=knob_mults, device=dev)
+            before = tick_core.launches
+            snaps, traces = [], []
+            for _ in range(ticks // chunk):
+                states, tr = ens.run_ensemble_ticks(params, states, plans, seeds, chunk,
+                                                    knobs=knobs)
+                tr = {k: v.cpu().numpy() for k, v in tr.items()}
+                snaps.append((dense_state_to_numpy(states), tr))
+                traces.append(tr)
+            if dev == "cuda":
+                launches[tag] = tick_core.launches - before
+            whole = {k: torch.from_numpy(np.concatenate([t[k] for t in traces], axis=1)).to(dev)
+                     for k in traces[0]}
+            runs[dev] = (snaps, ensemble_report(params, whole)["rows"])
+        _compare_runs(f"[22] {tag}", runs["cuda"][0], runs["cpu"][0])
+        if runs["cuda"][1] != runs["cpu"][1]:
+            fail(f"[22] {tag}: ensemble_report rows differ between card and CPU")
+        last = runs["cuda"][0][-1][1]
+        say(f"[22] {tag}: B={b} n={n}, {ticks} ticks in chunks of {chunk}, card == CPU on "
+            f"every leaf and [B, T] trace after every chunk and on the {len(runs['cuda'][1])} "
+            f"ensemble_report rows; final convergence {last['convergence'][:, -1].tolist()}, "
+            f"tick_core launches {launches[tag]}")
+    if launches["dense XLA core, knobs"] != 0 or not 0 < launches["dense fused route"] < ticks:
+        fail(f"[22] tick_core launches {launches}: expected none with knobs and some, not "
+             "all, ticks on the fused route (SYNC and joining ticks take the slow core)")
+
+    n, s = 1024, 256
+    sparse_launches = {}
+    for tag, params, knob_mults in (
+        ("sparse XLA chain, knobs", dataclasses.replace(_fold_params(n, s), pallas_core=False),
+         (1.0, 2.0, 0.5)),
+        ("sparse kernel route", _fold_params(n, s), None),
+    ):
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            states = ens.init_ensemble_sparse(n, range(5, 5 + b), slot_budget=s,
+                                              user_gossip_slots=2, device=dev)
+            plans = ens.stack_universes(_ensemble_schedules(n, b, dev))
+            knobs = None if knob_mults is None else ens.knob_grid(
+                params.base, suspicion_mults=knob_mults, device=dev)
+            before = sparse_core.launches
+            snaps, traces = [], []
+            for _ in range(ticks // chunk):
+                states, tr = ens.run_ensemble_sparse_chunked(
+                    params, states, plans, chunk, chunk=chunk, knobs=knobs)
+                snaps.append((sparse_state_to_numpy(states), tr))
+                traces.append(tr)
+            if dev == "cuda":
+                sparse_launches[tag] = sparse_core.launches - before
+            conv = ens.ensemble_sparse_convergence(states)
+            whole = {k: torch.from_numpy(np.concatenate([t[k] for t in traces], axis=1)).to(dev)
+                     for k in traces[0]}
+            runs[dev] = (snaps, ensemble_report(params.base, whole,
+                                                final_convergence=conv)["rows"])
+        _compare_runs(f"[22] {tag}", runs["cuda"][0], runs["cpu"][0])
+        if runs["cuda"][1] != runs["cpu"][1]:
+            fail(f"[22] {tag}: ensemble_report rows differ between card and CPU")
+        say(f"[22] {tag}: B={b} n={n} S={s}, {ticks} ticks in chunks of {chunk} with "
+            f"host-boundary write-backs, card == CPU on every leaf and [B, T] trace after "
+            f"every chunk and on the ensemble_report rows; sparse_core launches "
+            f"{sparse_launches[tag]}")
+    if sparse_launches != {"sparse XLA chain, knobs": 0, "sparse kernel route": ticks}:
+        fail(f"[22] sparse_core launches {sparse_launches}: expected 0 and {ticks}")
+    return launches["dense fused route"], sparse_launches["sparse kernel route"]
+
+
+def phase_sparse_ensemble_full_width(torch):
+    """Phase 23: the sparse ensemble through the kernel at the sparse main
+    path's width (B=4), then the ``--ensemble`` rung at B=16 and B=1."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.bench import _device_profile, measure_ensemble
+    from scalecube_cluster_tpu_torch.sim import ensemble as ens
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.sparse import SparseParams
+
+    b, n, s, chunk, reps = 4, 32768, 512, 48, 4
+    params = SparseParams.for_n(n, slot_budget=s, in_scan_writeback=False, pallas_core=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    states = ens.init_ensemble_sparse(n, range(b), slot_budget=s, device="cuda")
+    alive = states.alive.clone()
+    alive[:, 7] = False  # kill_sparse(..., 7) in every universe
+    states = states.replace(alive=alive, wb_valid=torch.zeros_like(states.wb_valid))
+    plans = ens.stack_universes(FaultPlan.uniform(loss_percent=5.0, device="cuda")
+                                for _ in range(b))
+
+    def chunk_run(st, collect=False):
+        st, tr = ens.run_ensemble_sparse_ticks(params, st, plans, chunk, collect=collect)
+        st = ens.ensemble_writeback_free(params, st)
+        int(st.view_T[0, 0, 0])
+        return st, tr
+
+    states, _ = chunk_run(states)
+    per_chunk = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        states, _ = chunk_run(states)
+        per_chunk.append(time.perf_counter() - t0)
+    states, tr = chunk_run(states, collect=True)
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    expect = (reps + 2) * chunk
+    if counts["sparse_core"] != expect:
+        fail(f"[23] sparse_core launched {counts['sparse_core']} times, expected {expect} "
+             "(one a tick for the whole batch)")
+    for k, v in tr.items():
+        arr = v.cpu().numpy()
+        if arr.shape[:2] != (b, chunk) or not np.all(np.isfinite(arr)):
+            fail(f"[23] trace {k} malformed: shape {arr.shape}")
+    if int(tr["slot_overflow"].sum()) != 0:
+        fail(f"[23] slot overflow {int(tr['slot_overflow'].sum())}")
+    flagged = []
+    for u in range(b):
+        st = ens.index_universe(states.replace(view_T=states.view_T[:, :, :0]), u)
+        slot = int(st.subj_slot[7])
+        rec = st.slab[:, slot] if slot >= 0 else states.view_T[u, 7, :]
+        flagged.append(_flagging_viewers(st.alive, rec, 7))
+    if min(flagged) == 0:
+        fail(f"[23] live viewers flagging member 7 per universe: {flagged}")
+    ticks = reps * chunk
+    ms_tick = sum(per_chunk) * 1e3 / ticks
+    rate = b * n * ticks / sum(per_chunk)
+    say(f"[23] sparse ensemble B={b} n={n} S={s}, kernel route, 5% loss, member 7 killed in "
+        f"each: {ms_tick:.3f} ms/tick (chunks {', '.join(f'{c * 1e3 / chunk:.3f}' for c in per_chunk)}), "
+        f"{rate:.1f} universes·member·rounds/s, peak device memory {peak_gib:.3f} GiB, "
+        f"launches {counts} (expect sparse_core {expect}); collect chunk: n_active_slots "
+        f"{tr['n_active_slots'][:, -1].tolist()}, live viewers flagging member 7 {flagged}")
+
+    snap = [states, dataclasses.replace(states, **{
+        f.name: getattr(states, f.name).clone() for f in dataclasses.fields(states)
+        if isinstance(getattr(states, f.name), torch.Tensor)})]
+
+    def run(i):
+        ens.run_ensemble_sparse_ticks(params, snap[i], plans, chunk, collect=False)
+
+    prof = _device_profile(run, chunk)
+    del snap, states
+    say(f"[23] profile of {chunk} ticks: {prof['wall_ms_per_tick']:.3f} ms/tick, device busy "
+        f"{prof['device_busy_ms_per_tick']:.3f} ms/tick, idle share "
+        f"{prof['device_idle_share']:.4f}, {prof['device_launches_per_tick']:.3f} launches a "
+        f"tick")
+    rung = {}
+    for bb in (16, 1):
+        rung[bb] = measure_ensemble(bb, 1024)
+        say(f"[23] --ensemble {bb} 1024: {rung[bb]['value']:.1f} universes·member·rounds/s, "
+            f"{rung[bb]['per_universe']:.1f} per universe, {rung[bb]['ms_per_tick']:.3f} "
+            "ms/tick")
+    say(f"[23] batching 16 universes: {rung[16]['value'] / rung[1]['value']:.2f}x the "
+        "throughput of one")
+    return counts["sparse_core"], {"ms_per_tick": ms_tick, "rate": rate, "peak_gib": peak_gib,
+                                   "profile": prof, "rung": rung}
+
+
+def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None,
+                  batched=None):
+    entry = {
         "name": name,
         "route": "cuda",
         "source": source,
@@ -1870,6 +2172,9 @@ def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=Non
         "checked_in": checked_in,
         **({"launches_by_path": by_path} if by_path else {}),
     }
+    if batched:
+        entry["batched"] = batched
+    return entry
 
 
 def main() -> int:
@@ -1907,27 +2212,38 @@ def main() -> int:
     phase_recorder_elastic_card_vs_cpu(torch)
     elastic_launches, _ = phase_elastic_full_width(torch)
     phase_recorder_full_width(torch)
+    batched_rows = phase_batched_kernels(torch)
+    ens_dense_launches, ens_card_launches = phase_ensemble_card_vs_cpu(torch)
+    ens_launches, _ = phase_sparse_ensemble_full_width(torch)
 
     kernels = {
         "kernels": [
             _kernel_entry(
                 "sparse_core", "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
                 "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
-                sparse_launches + sched_sparse_launches + elastic_launches,
+                sparse_launches + sched_sparse_launches + elastic_launches + ens_launches,
                 core_rows[(32768, 512)],
                 ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path",
                  "[15] timelines card vs CPU", "[16] scheduled path",
-                 "[18] elastic card vs CPU", "[19] elastic path"],
+                 "[18] elastic card vs CPU", "[19] elastic path",
+                 "[21] batched kernel vs plain and vs single launches",
+                 "[22] ensemble card vs CPU", "[23] sparse ensemble path"],
                 {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches,
-                 "[19] elastic path": elastic_launches},
+                 "[19] elastic path": elastic_launches, "[23] sparse ensemble path": ens_launches,
+                 "[22] ensemble card vs CPU (card side)": ens_card_launches},
+                batched=batched_rows["sparse_core"],
             ),
             _kernel_entry(
                 "tick_core", "scalecube_cluster_tpu_torch/csrc/tick_core.cu",
                 "scalecube_cluster_tpu/ops/pallas_tick.py:476",
                 dense_launches + sched_dense_launches, dense_rows[10240],
                 ["[6] kernel vs plain", "[7] card vs CPU", "[8] dense main path",
-                 "[15] timelines card vs CPU", "[17] dense timeline"],
-                {"[8] dense main path": dense_launches, "[17] dense timeline": sched_dense_launches},
+                 "[15] timelines card vs CPU", "[17] dense timeline",
+                 "[21] batched kernel vs plain and vs single launches",
+                 "[22] ensemble card vs CPU"],
+                {"[8] dense main path": dense_launches, "[17] dense timeline": sched_dense_launches,
+                 "[22] dense ensemble, fused route (card side)": ens_dense_launches},
+                batched=batched_rows["tick_core"],
             ),
             _kernel_entry(
                 "sparse_core_persistent",
@@ -1957,7 +2273,7 @@ def main() -> int:
             ),
         ]
     }
-    say(f"[21] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[24] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

@@ -16,6 +16,9 @@ the fused delivery + merge (``ops/delivery_merge.py``, driven by
 worlds and knobs; elastic membership and geometry promotion; the causal
 flight recorder (``obs/tracer.py``, decoded by ``obs/trace.py`` and
 certified by ``tools/trace_explain.py``) and the other observability
-copies (``obs/``); ``sim/monitor.py``; and checkpoints that cross
-packages (``sim/checkpoint.py``).
+copies (``obs/``); ``sim/monitor.py``; checkpoints that cross packages
+(``sim/checkpoint.py``); and ensembles of B universes stepped as one batch
+(``sim/ensemble.py``, the fused cores taking the universe as a grid axis),
+with their population report (``obs/ensemble.py``) and the SWIM
+certifiers (``testlib/invariants.py``).
 """

@@ -36,6 +36,13 @@ Persistent (``bench.py::_measure_persistent_ksweep``, ``python bench.py
 (``ops/sparse_persistent.py``) swept over launch depth k = 1..k_max on one
 build, over the seeded operands of the JAX rung (:func:`measure_persistent_ksweep`).
 
+Ensemble (``bench.py::_measure_ensemble``, ``--ensemble B [n]``, default
+n=1024): B dense universes (LAN preset, XLA core as there) under B uniform
+5%-loss plans, seeds ``[0, 1]``, stepped together by sim/ensemble.py — one
+warm-up and ``reps`` timed 40-tick chunks (collect=False, each ending in a
+fetch from the stacked view); the value is universes·member·rounds/s
+(:func:`measure_ensemble`). ``--profile`` works on it as on the engines.
+
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
 [--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``, or
 ``--tracer-overhead [n] [S]``) prints one JSON line per run of ``CLI_REPS``
@@ -63,6 +70,11 @@ from scalecube_cluster_tpu_torch.ops import sparse_persistent
 from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
 from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
 from scalecube_cluster_tpu_torch.sim import state as dense
+from scalecube_cluster_tpu_torch.sim.ensemble import (
+    init_ensemble_dense,
+    run_ensemble_ticks,
+    stack_universes,
+)
 from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
 from scalecube_cluster_tpu_torch.sim.params import SimParams
 from scalecube_cluster_tpu_torch.sim.run import run_ticks
@@ -290,6 +302,65 @@ def profile_dense(n: int = 10240, ticks: int = 40, chunk: int = 40):
     return row
 
 
+def _ensemble_path(b_count: int, n: int, chunk: int):
+    """The ``--ensemble`` rung's set-up on the card after one warm-up
+    chunk: params (LAN preset, XLA core), B states seeded ``range(B)``, B
+    uniform 5%-loss plans, the seed mask."""
+    params = dataclasses.replace(SimParams.from_cluster_config(n), pallas_delivery=False)
+    states = init_ensemble_dense(
+        n, range(b_count), user_gossip_slots=params.user_gossip_slots, device="cuda"
+    )
+    plans = stack_universes(
+        FaultPlan.uniform(loss_percent=5.0, device="cuda") for _ in range(b_count)
+    )
+    seeds = dense.seeds_mask(n, [0, 1], device="cuda")
+    states, _ = run_ensemble_ticks(params, states, plans, seeds, chunk, collect=False)
+    int(states.view[0, 0, 0])
+    return params, states, plans, seeds
+
+
+def measure_ensemble(b_count: int, n: int = 1024, chunk: int = 40, reps: int = 4) -> dict:
+    """The ``--ensemble B [n]`` rung (bench.py::_measure_ensemble): B dense
+    universes stepped together, one warm-up and ``reps`` timed ``chunk``-
+    tick runs (collect=False), each ending in a fetch from the stacked
+    view. The value is B · n · ticks / s, the reference's
+    ``bench_ensemble`` row."""
+    params, states, plans, seeds = _ensemble_path(b_count, n, chunk)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        states, _ = run_ensemble_ticks(params, states, plans, seeds, chunk, collect=False)
+        int(states.view[0, 0, 0])
+    dt = time.perf_counter() - t0
+    value = b_count * n * reps * chunk / dt
+    return {
+        "metric": "ensemble_member_gossip_rounds_per_sec",
+        "value": value,
+        "unit": "universes·member·rounds/s",
+        "per_universe": value / b_count,
+        "ns_per_member": 1e9 / value,
+        "vs_baseline": value / BASELINE_MEMBER_ROUNDS_PER_SEC,
+        "n_members": n,
+        "universes": b_count,
+        "engine": "dense-ensemble",
+        "ms_per_tick": dt * 1e3 / (reps * chunk),
+    }
+
+
+def profile_ensemble(b_count: int, n: int = 1024, ticks: int = 40, chunk: int = 40) -> dict:
+    """Where the ``--ensemble`` rung's time goes on the card: after one
+    warm-up chunk, the same ``ticks`` ticks from one stacked state,
+    untraced and traced (:func:`_device_profile`; the dense tick leaves its
+    input as it was)."""
+    params, states, plans, seeds = _ensemble_path(b_count, n, chunk)
+
+    def run(_):
+        run_ensemble_ticks(params, states, plans, seeds, ticks, collect=False)
+
+    row = {"engine": "dense-ensemble", "n": n, "universes": b_count}
+    row.update(_device_profile(run, ticks))
+    return row
+
+
 def measure_geo(n: int = 1024, chunk: int = 40, reps: int = 4) -> dict:
     """The ``--geo [n]`` rung (bench.py::_measure_geo): the dense engine
     (LAN preset, ``pallas_delivery`` off as there, no kill, seeds [0, 1])
@@ -479,6 +550,8 @@ def main(argv) -> int:
     ap.add_argument("--tracer-overhead", type=int, nargs="?", const=4096, default=None,
                     metavar="N", help="the flight-recorder cost rung at N members "
                     "(default 4096; the positional S overrides its slab width)")
+    ap.add_argument("--ensemble", type=int, nargs="+", default=None, metavar="B",
+                    help="the dense ensemble rung: B universes [of N members, default 1024]")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
@@ -491,6 +564,14 @@ def main(argv) -> int:
 
     if args.geo is not None:
         emit("bench_geo", measure_geo(args.geo))
+        return 0
+    if args.ensemble is not None:
+        b_count = args.ensemble[0]
+        n = args.ensemble[1] if len(args.ensemble) > 1 else 1024
+        if args.profile:
+            emit("bench_ensemble_profile", profile_ensemble(b_count, n))
+        else:
+            emit("bench_ensemble", measure_ensemble(b_count, n))
         return 0
     if args.tracer_overhead is not None:
         emit("bench_tracer", measure_tracer_overhead(args.tracer_overhead, args.slot_budget)[0])

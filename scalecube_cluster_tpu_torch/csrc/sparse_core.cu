@@ -59,7 +59,12 @@
 //     thread's 4-lane span (the own lane only where one of the span's
 //     subjects is a row of the CTA). The rare spans that hold one, and dead
 //     receiver rows, take the general path.
-//   - Offsets are 32-bit: the wrapper refuses n*S >= 2^31.
+//   - Offsets are 32-bit inside a universe: the wrapper refuses
+//     n*S >= 2^31. An ensemble's B universes (sim/ensemble.py, the vmap of
+//     the reference's pallas_call) are the grid's third axis: each CTA
+//     moves every pointer to its universe with a 64-bit offset (at
+//     n=32768, S=512 a universe is 2^24 cells, so B >= 128 passes 2^31),
+//     and the rest of the kernel is the one-universe kernel.
 //   - The aggregate is OR-ed over the CTA's 32 rows in shared memory, then
 //     one atomicOr per lane word and CTA goes into the [S] vector the
 //     launcher zeroes on the stream; the self-rumor is an atomicMax into
@@ -210,6 +215,28 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
   const int fan = kF > 0 ? kF : f;
   const int blk = blockIdx.x;
   const int nb = gridDim.x;
+  {
+    // This CTA's universe.
+    const size_t u = blockIdx.z;
+    const size_t cells = u * (size_t)n * (size_t)s;
+    slab += cells;
+    age += cells;
+    susp += cells;
+    slab2 += cells;
+    age2 += cells;
+    susp2 += cells;
+    slot_subj += u * s;
+    aggr += u * s;
+    ginv += u * f * nb;
+    rots += u * f * nb;
+    edge_ok += u * f * n;
+    alive += u * n;
+    fd_slot += u * n;
+    sy_slot += u * n;
+    fd_key += u * n;
+    sy_key += u * n;
+    self_rumor += u * n;
+  }
   const int row0 = blk * kGroup;
   const int tx = threadIdx.x % kCols;
   const int j0 = blockIdx.y * kTile + kQ * tx;
@@ -367,25 +394,26 @@ void launch(dim3 grid, cudaStream_t stream, const void* slab, const void* age,
 }  // namespace
 
 // Fills ``self_rumor`` with -1 and zeroes ``aggr`` on ``stream``, then
-// launches the kernel there on an (n/32 row blocks, lane tiles) grid.
+// launches the kernel there on an (n/32 row blocks, lane tiles, b
+// universes) grid; every operand holds b universes back to back.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int sparse_core_launch(
     const void* slab, const void* age, const void* susp, const void* slot_subj,
     const void* ginv, const void* rots, const void* edge_ok, const void* alive,
     const void* fd_slot, const void* sy_slot, const void* fd_key,
     const void* sy_key, void* slab2, void* age2, void* susp2, void* self_rumor,
-    void* aggr, int n, int s, int f, int spread, int susp_ticks,
+    void* aggr, int n, int s, int f, int b, int spread, int susp_ticks,
     int age_stale, int sweep, void* stream) {
   if (n <= 0 || n % kGroup != 0 || s <= 0 || f > kMaxFanout || f < 1 ||
-      (long long)n * s >= (1LL << 31))
+      (long long)n * s >= (1LL << 31) || b < 1 || b > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(self_rumor, 0xff, sizeof(int32_t) * n, st);
-  if (err == cudaSuccess) err = cudaMemsetAsync(aggr, 0, sizeof(int32_t) * s, st);
+  cudaError_t err = cudaMemsetAsync(self_rumor, 0xff, sizeof(int32_t) * n * (size_t)b, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(aggr, 0, sizeof(int32_t) * s * (size_t)b, st);
   if (err != cudaSuccess) return (int)err;
   const bool vec = s % kQ == 0 && aligned(slab, 16) && aligned(slab2, 16) && aligned(age, 4) &&
                    aligned(age2, 4) && aligned(susp, 8) && aligned(susp2, 8);
-  const dim3 grid(n / kGroup, (s + kTile - 1) / kTile);
+  const dim3 grid(n / kGroup, (s + kTile - 1) / kTile, b);
   const Consts k{spread, susp_ticks, age_stale, sweep};
 #define SPARSE_CORE_ARGS                                                                      \
   grid, st, slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, fd_slot, sy_slot, fd_key, \

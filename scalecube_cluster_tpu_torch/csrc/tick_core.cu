@@ -57,7 +57,10 @@
 //     channel) or row against the thread's 4-column span. The rare spans
 //     that hold one, and dead receiver rows, take the general path; the
 //     others skip those tests.
-//   - Offsets are 32-bit: the wrapper refuses n*n >= 2^31.
+//   - Offsets are 32-bit inside a universe: the wrapper refuses
+//     n*n >= 2^31. An ensemble's B universes (sim/ensemble.py) are the
+//     grid's third axis: each CTA moves every pointer to its universe
+//     with a 64-bit offset, and the rest is the one-universe kernel.
 //   - known_cnt: each warp sums a row's count (__reduce_add_sync), the CTA
 //     adds its warps in shared memory, then one atomicAdd per (CTA, row)
 //     into the [N] vector the launcher zeroes on the stream: integer
@@ -199,6 +202,27 @@ __global__ void __launch_bounds__(kThreads) tick_core_kernel(
   const int fan = kF > 0 ? kF : f;
   const int grp = blockIdx.x;
   const int ng = gridDim.x;
+  {
+    // This CTA's universe.
+    const size_t u = blockIdx.z;
+    const size_t cells = u * (size_t)n * (size_t)n;
+    rows += cells;
+    view0 += cells;
+    age += cells;
+    susp += cells;
+    view2 += cells;
+    age2 += cells;
+    susp2 += cells;
+    rows_next += cells;
+    ginv += u * f * ng;
+    rots += u * f * ng;
+    edge_ok += u * f * n;
+    alive += u * n;
+    fd_tgt += u * n;
+    fd_key += u * n;
+    self_rumor += u * n;
+    known_cnt += u * n;
+  }
   const int j0 = blockIdx.y * kTile + kQ * (threadIdx.x % kCols);
   const bool in_range = j0 < n;  // n % 8 == 0: a span is all in or all out
 
@@ -311,25 +335,26 @@ void launch(dim3 grid, cudaStream_t stream, const void* rows, const void* view0,
 }  // namespace
 
 // Zeroes known_cnt and launches the kernel on ``stream``; every output is
-// written in full. The grid is (n/8 receiver groups, column tiles).
+// written in full. The grid is (n/8 receiver groups, column tiles, b
+// universes); every operand holds b universes back to back.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int tick_core_launch(
     const void* rows, const void* view0, const void* age, const void* susp,
     const void* ginv, const void* rots, const void* edge_ok, const void* alive,
     const void* fd_tgt, const void* fd_key, void* view2, void* age2,
     void* susp2, void* rows_next, void* self_rumor, void* known_cnt, int n,
-    int f, int spread, int sweep, int susp_ticks, int age_stale,
+    int f, int b, int spread, int sweep, int susp_ticks, int age_stale,
     void* stream) {
   if (n <= 0 || n % kGroup != 0 || f > kMaxFanout || f < 1 ||
-      (long long)n * n >= (1LL << 31))
+      (long long)n * n >= (1LL << 31) || b < 1 || b > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemsetAsync(known_cnt, 0, sizeof(int32_t) * n, s);
+  cudaError_t err = cudaMemsetAsync(known_cnt, 0, sizeof(int32_t) * n * (size_t)b, s);
   if (err != cudaSuccess) return (int)err;
   const bool vec = aligned(rows, 16) && aligned(view0, 16) && aligned(view2, 16) &&
                    aligned(rows_next, 16) && aligned(age, 4) && aligned(age2, 4) &&
                    aligned(susp, 8) && aligned(susp2, 8);
-  const dim3 grid(n / kGroup, (n + kTile - 1) / kTile);
+  const dim3 grid(n / kGroup, (n + kTile - 1) / kTile, b);
   const Consts k{spread, sweep, susp_ticks, age_stale};
 #define TICK_CORE_ARGS                                                                    \
   grid, s, rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, fd_key, view2, age2, \

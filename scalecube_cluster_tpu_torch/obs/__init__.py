@@ -3,8 +3,8 @@ shared counter schema (``counters``), detection latencies (``latency``),
 rolling SLO windows (``slo``), profiler scopes (``profiling``), the
 schema-versioned row exporter (``export``), and the causal flight
 recorder — its device ring (``tracer``) and its host-side decoder
-(``trace``). Each module is a copy of the JAX package's, held against it
-by the tests; ``obs/ensemble.py`` waits for the port's ensembles."""
+(``trace``) — and the ensembles' population report (``ensemble``). Each
+module is a copy of the JAX package's, held against it by the tests."""
 
 from scalecube_cluster_tpu_torch.obs.counters import SHARED_COUNTERS, ProtocolCounters
 from scalecube_cluster_tpu_torch.obs.export import (

@@ -10,6 +10,11 @@ aligned sender window. Per channel c, receiver j's sender is::
 a bijection per channel (in- and out-degree exactly f). The group is 32
 rows when n % 32 == 0, else 8 — it decides which edges are sampled, so the
 port keeps the reference's choice.
+
+Every function also takes an ensemble's operands (sim/ensemble.py): a
+leading universe axis on the key (a :class:`~..prng.KeyBatch`), the
+compact form (``[B, k, n/group]``), the permutations (``[B, k, n]``), the
+rows and the edge bits; :func:`take_rows` is the batched row gather.
 """
 
 from __future__ import annotations
@@ -29,16 +34,29 @@ def structured_fanout_draw(key, n: int, k: int, device, group: int = GROUP):
     if ng * group != n:
         raise ValueError(f"n={n} not a multiple of group={group}")
     ks = prng.split(key, k + 1)
-    ginv = torch.stack([prng.permutation(ks[c], ng, device) for c in range(k)])
+    lead = 1 if isinstance(key, prng.KeyBatch) else 0
+    ginv = torch.stack([prng.permutation(ks[c], ng, device) for c in range(k)], dim=lead)
     rots = prng.randint(ks[k], (k, ng), 0, group, device)
     return ginv, rots
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[idx]`` along the member axis: ``x [N, ...]`` with ``idx [...]``,
+    or, batched, ``x [B, N, ...]`` with ``idx [B, M]`` (each universe's
+    rows from its own ``x``)."""
+    if idx.dim() == 1:
+        return x[idx.long()]
+    b, m = idx.shape
+    tail = tuple(x.shape[2:])
+    ix = idx.long().reshape((b, m) + (1,) * len(tail)).expand((b, m) + tail)
+    return torch.gather(x, 1, ix)
 
 
 def inv_from_structured(ginv, rots, n: int, group: int = GROUP) -> torch.Tensor:
     """Expand the compact structured form to full ``[k, n]`` sender indices."""
     j = torch.arange(n, dtype=torch.int32, device=ginv.device)
     g = j // group
-    return (group * ginv[:, g] + (j[None, :] + rots[:, g]) % group).to(torch.int32)
+    return (group * ginv[..., g] + (j + rots[..., g]) % group).to(torch.int32)
 
 
 def fanout_permutations_structured(key, n: int, k: int, device, group: int = GROUP):
@@ -52,11 +70,11 @@ def perm_from_structured(ginv, rots, n: int, group: int = GROUP) -> torch.Tensor
     """Forward permutation ``perm[c, i]`` = sender i's c-th receiver, the
     inverse of :func:`inv_from_structured` in closed form (only the
     [k, n/group] group permutation is inverted)."""
-    gfwd = torch.argsort(ginv, dim=1)
+    gfwd = torch.argsort(ginv, dim=-1)
     i = torch.arange(n, dtype=torch.int64, device=ginv.device)
-    g = gfwd[:, i // group]  # [k, n] receiver group of sender i
-    rot = torch.gather(rots.to(torch.int64), 1, g)
-    return (group * g + (i[None, :] - rot) % group).to(torch.int32)
+    g = gfwd[..., i // group]  # [k, n] receiver group of sender i
+    rot = torch.gather(rots.to(torch.int64), -1, g)
+    return (group * g + (i - rot) % group).to(torch.int32)
 
 
 def fanout_permutations(key, n: int, k: int, device):
@@ -65,16 +83,18 @@ def fanout_permutations(key, n: int, k: int, device):
     both ``[k, n]`` int32, sender i's c-th target is ``perm[c, i]`` and
     ``inv[c, perm[c, i]] == i``."""
     ks = prng.split(key, k)
-    perm = torch.stack([prng.permutation(ks[c], n, device) for c in range(k)])
-    return perm, torch.argsort(perm, dim=1).to(torch.int32)
+    lead = 1 if isinstance(key, prng.KeyBatch) else 0
+    perm = torch.stack([prng.permutation(ks[c], n, device) for c in range(k)], dim=lead)
+    return perm, torch.argsort(perm, dim=-1).to(torch.int32)
 
 
 def permuted_delivery(rows, inv_perm, edge_ok) -> torch.Tensor:
     """Receiver-side gathered delivery: ``[n, M]`` per-receiver max over the
     f senders whose edge delivers, -1 where nothing arrived."""
     out = torch.full_like(rows, -1)
-    for c in range(inv_perm.shape[0]):
-        contrib = torch.where(edge_ok[c][:, None], rows[inv_perm[c].long()], -1)
+    for c in range(inv_perm.shape[-2]):
+        ok = edge_ok[..., c, :, None]
+        contrib = torch.where(ok, take_rows(rows, inv_perm[..., c, :]), -1)
         out = torch.maximum(out, contrib)
     return out
 
@@ -86,8 +106,9 @@ def permuted_delivery_two_channel(rows, channel2_mask, inv_perm, edge_ok):
     best_ch2)``, both ``[n, M]``, -1 where empty."""
     best_all = torch.full_like(rows, -1)
     best_ch2 = torch.full_like(rows, -1)
-    for c in range(inv_perm.shape[0]):
-        contrib = torch.where(edge_ok[c][:, None], rows[inv_perm[c].long()], -1)
+    for c in range(inv_perm.shape[-2]):
+        ok = edge_ok[..., c, :, None]
+        contrib = torch.where(ok, take_rows(rows, inv_perm[..., c, :]), -1)
         best_all = torch.maximum(best_all, contrib)
         best_ch2 = torch.maximum(best_ch2, torch.where(channel2_mask(contrib), contrib, -1))
     return best_all, best_ch2
@@ -99,12 +120,14 @@ def deliver_rows_max(rows, dst, edge_ok, n: int) -> torch.Tensor:
     of what it received, -1 where nothing arrived. The reference's
     ``segment_max`` with dropped edges routed to a pad segment ``n``: an
     empty segment holds the dtype's minimum, and the max with -1 follows."""
-    m = rows.shape[1]
+    m = rows.shape[-1]
+    lead = tuple(rows.shape[:-2])
     safe_dst = torch.where(edge_ok, dst, n).long()
-    best = torch.full((n, m), -1, dtype=rows.dtype, device=rows.device)
+    best = torch.full(lead + (n, m), -1, dtype=rows.dtype, device=rows.device)
     lowest = torch.iinfo(rows.dtype).min
-    for c in range(dst.shape[1]):
-        seg = torch.full((n + 1, m), lowest, dtype=rows.dtype, device=rows.device)
-        seg.scatter_reduce_(0, safe_dst[:, c, None].expand(-1, m), rows, "amax")
-        best = torch.maximum(best, seg[:n])
+    for c in range(dst.shape[-1]):
+        seg = torch.full(lead + (n + 1, m), lowest, dtype=rows.dtype, device=rows.device)
+        idx = safe_dst[..., c, None].expand(lead + (rows.shape[-2], m))
+        seg.scatter_reduce_(-2, idx, rows, "amax")
+        best = torch.maximum(best, seg[..., :n, :])
     return best

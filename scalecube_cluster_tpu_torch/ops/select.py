@@ -43,7 +43,9 @@ def masked_random_topk(key, mask: torch.Tensor, k: int):
     (``[..., N]`` bool). Returns ``(idx int32, valid bool)``, both
     ``[..., k]``; surplus picks of a row with fewer than ``k`` candidates
     have ``valid=False``."""
-    return topk_by_order(prng.gumbel_order(key, tuple(mask.shape), mask.device), mask, k)
+    # A KeyBatch draws its own leading universe axis.
+    shape = tuple(mask.shape[1:] if isinstance(key, prng.KeyBatch) else mask.shape)
+    return topk_by_order(prng.gumbel_order(key, shape, mask.device), mask, k)
 
 
 def topk_by_order(order: torch.Tensor, mask: torch.Tensor, k: int):

@@ -17,6 +17,13 @@ aging, and the per-slot OR aggregate (:data:`AGGR_HOLD_BIT`,
   on CUDA tensors it launches ``csrc/sparse_core.cu`` and adds one to
   ``sparse_core.launches``, or raises — it never falls back.
 
+Both take an ensemble's operands too (sim/ensemble.py): every per-universe
+operand with a leading universe axis B (``slab [B, N, S]``, ``slot_subj
+[B, S]``, ``ginv [B, f, N/32]``, ``edge_ok [B, f, N]``, the [B, N] point
+lanes and keys) and outputs to match; the kernel takes the universe as the
+grid's third axis, one launch for the whole batch, the vmap of the
+reference's ``pallas_call``.
+
 The CUDA source is compiled with ``nvcc`` for ``sm_90a`` at first use into
 ``build/torch_kernels/`` under the repository root and bound with
 ``ctypes``; nothing is built or imported when this module is imported.
@@ -29,7 +36,7 @@ import ctypes
 import torch
 
 from scalecube_cluster_tpu_torch.ops.cuda_build import CudaLibrary
-from scalecube_cluster_tpu_torch.ops.delivery import inv_from_structured
+from scalecube_cluster_tpu_torch.ops.delivery import inv_from_structured, take_rows
 from scalecube_cluster_tpu_torch.ops.merge import (
     DEAD_BIT,
     is_alive_key,
@@ -81,34 +88,34 @@ def sparse_core_reference(
     countdown expired into DEAD this tick (the flight recorder's
     ``DEAD_VIA_EXPIRY``), which the kernel does not expose.
     """
-    n, s = slab.shape
+    n, s = slab.shape[-2:]
     lanes = torch.arange(s, dtype=torch.int32, device=slab.device)
     rows = torch.arange(n, dtype=torch.int32, device=slab.device)
-    cell_fd = lanes[None, :] == fd_slot[:, None]
-    cell_sy = lanes[None, :] == sy_slot[:, None]
+    cell_fd = lanes == fd_slot[..., None]
+    cell_sy = lanes == sy_slot[..., None]
     point = cell_fd | cell_sy
     local = torch.where(
-        cell_sy, sy_key[:, None], torch.where(cell_fd, fd_key[:, None], slab)
+        cell_sy, sy_key[..., None], torch.where(cell_fd, fd_key[..., None], slab)
     )
     age0 = torch.where(point, 0, age.to(torch.int32))
-    active = (slot_subj >= 0)[None, :]
+    active = (slot_subj >= 0)[..., None, :]
     payload = torch.where((age0 < spread) & active, local, -1)
 
     inv = inv_from_structured(ginv, rots, n, group)
     best_any = torch.full_like(slab, -1)
     best_alive = torch.full_like(slab, -1)
-    for c in range(ginv.shape[0]):
-        contrib = torch.where(edge_ok[c][:, None], payload[inv[c].long()], -1)
+    for c in range(ginv.shape[-2]):
+        contrib = torch.where(edge_ok[..., c, :, None], take_rows(payload, inv[..., c, :]), -1)
         best_any = torch.maximum(best_any, contrib)
         best_alive = torch.maximum(
             best_alive, torch.where(is_alive_key(contrib), contrib, -1)
         )
-    own = slot_subj[None, :] == rows[:, None]
-    self_rumor = torch.where(own, best_any, -1).amax(dim=1)
+    own = slot_subj[..., None, :] == rows[:, None]
+    self_rumor = torch.where(own, best_any, -1).amax(dim=-1)
     best_any = torch.where(own, -1, best_any)
     best_alive = torch.where(own, -1, best_alive)
 
-    alive_row = alive[:, None]
+    alive_row = alive[..., None]
     merged, _ = merge_views(local, best_any, best_alive)
     merged = torch.where(active & alive_row, merged, local)
 
@@ -137,9 +144,9 @@ def sparse_core_reference(
     dead2 = is_dead_key(slab2)
     holding = (age2 < spread) | (susp2 > 0) | (dead2 & ~(age2 > sweep) & ~own)
     aggr = (
-        ((holding & alive_row).any(dim=0).to(torch.int32) << AGGR_HOLD_BIT)
-        | ((susp_rec & alive_row).any(dim=0).to(torch.int32) << AGGR_SUSPECT_BIT)
-        | ((dead2 & alive_row).any(dim=0).to(torch.int32) << AGGR_DEAD_BIT)
+        ((holding & alive_row).any(dim=-2).to(torch.int32) << AGGR_HOLD_BIT)
+        | ((susp_rec & alive_row).any(dim=-2).to(torch.int32) << AGGR_SUSPECT_BIT)
+        | ((dead2 & alive_row).any(dim=-2).to(torch.int32) << AGGR_DEAD_BIT)
     )
     out = (
         slab2.to(torch.int32),
@@ -160,8 +167,11 @@ def check_offsets(n: int, s: int) -> None:
 
 def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
                     fd_slot, sy_slot, fd_key, sy_key):
-    n, s = slab.shape
-    f = ginv.shape[0]
+    lead = tuple(slab.shape[:-2])
+    n, s = slab.shape[-2:]
+    f = ginv.shape[-2]
+    if len(lead) > 1:
+        raise ValueError(f"slab: expected [N, S] or [B, N, S], got {tuple(slab.shape)}")
     if n % SPARSE_GROUP != 0:
         raise ValueError(f"n={n} is not a multiple of {SPARSE_GROUP}")
     if s >= 1 << SLOT_BITS:
@@ -183,6 +193,7 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
         "sy_key": (sy_key, torch.int32, (n,)),
     }
     for name, (t, dtype, shape) in expect.items():
+        shape = lead + shape
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
@@ -194,7 +205,7 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 7 + [
+    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p
     ]
     lib.sparse_core_launch.restype = ctypes.c_int
@@ -217,7 +228,8 @@ def sparse_core(
     ``sparse_core.launches``; a missing kernel or a refused launch raises.
     Raises ``ValueError`` on a wrong dtype, shape, device or contiguity,
     on n % 32 != 0, on S >= 4096 and, for CUDA tensors, on n * S >= 2**31
-    (:func:`check_offsets`).
+    (:func:`check_offsets`, per universe: a batch's universes are reached
+    through 64-bit offsets).
     """
     args = (slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
             fd_slot, sy_slot, fd_key, sy_key)
@@ -228,21 +240,23 @@ def sparse_core(
         return sparse_core_reference(*args, **consts)
     if slab.device.type != "cuda":
         raise ValueError(f"sparse_core: unsupported device {slab.device}")
-    n, s = slab.shape
+    lead = tuple(slab.shape[:-2])
+    n, s = slab.shape[-2:]
     check_offsets(n, s)
     lib = LIBRARY.load()
     slab2 = torch.empty_like(slab)
     age2 = torch.empty_like(age)
     susp2 = torch.empty_like(susp)
     # The launcher fills self_rumor with -1 and zeroes aggr on the stream.
-    self_rumor = torch.empty((n,), dtype=torch.int32, device=slab.device)
-    aggr = torch.empty((s,), dtype=torch.int32, device=slab.device)
+    self_rumor = torch.empty(lead + (n,), dtype=torch.int32, device=slab.device)
+    aggr = torch.empty(lead + (s,), dtype=torch.int32, device=slab.device)
     stream = torch.cuda.current_stream(slab.device).cuda_stream
     err = lib.sparse_core_launch(
         *(t.data_ptr() for t in args),
         slab2.data_ptr(), age2.data_ptr(), susp2.data_ptr(),
         self_rumor.data_ptr(), aggr.data_ptr(),
-        n, s, ginv.shape[0], spread, susp_ticks, age_stale, sweep, stream,
+        n, s, ginv.shape[-2], lead[0] if lead else 1, spread, susp_ticks, age_stale,
+        sweep, stream,
     )
     if err != 0:
         msg = lib.sparse_core_error_string(err).decode()

@@ -16,6 +16,11 @@ tick's young payload ``rows_next`` and the FD candidate count
 - :func:`tick_core` is the wrapper: on CPU tensors it runs the reference;
   on CUDA tensors it launches ``csrc/tick_core.cu`` and adds one to
   ``tick_core.launches``, or raises. It never falls back.
+
+Both take an ensemble's operands too (sim/ensemble.py): a leading universe
+axis B on every operand (``[B, N, N]`` tables, ``[B, f, N/8]`` fan-out,
+``[B, f, N]`` edges, ``[B, N]`` vectors) and on the outputs; the kernel
+takes the universe as the grid's third axis, one launch for the batch.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ import ctypes
 import torch
 
 from scalecube_cluster_tpu_torch.ops.cuda_build import CudaLibrary
-from scalecube_cluster_tpu_torch.ops.delivery import GROUP, inv_from_structured
+from scalecube_cluster_tpu_torch.ops.delivery import GROUP, inv_from_structured, take_rows
 from scalecube_cluster_tpu_torch.ops.merge import DEAD_BIT, is_alive_key, merge_views
 
 #: Channels the kernel's per-CTA shared-memory tables hold (``kMaxFanout``
@@ -60,27 +65,27 @@ def tick_core_reference(
     row (-1 = none) and ``fd_key`` its verdict key: the verdict joins the
     sender's payload and the receiver's own record at that column, and
     makes the cell young."""
-    n = view0.shape[0]
+    n = view0.shape[-1]
     col = torch.arange(n, dtype=torch.int32, device=view0.device)
-    cellm = col[None, :] == fd_tgt[:, None]
-    payload = torch.where(cellm, fd_key[:, None], rows)
+    cellm = col == fd_tgt[..., None]
+    payload = torch.where(cellm, fd_key[..., None], rows)
     inv = inv_from_structured(ginv, rots, n, GROUP)
     best_any = torch.full_like(rows, -1)
     best_alive = torch.full_like(rows, -1)
-    for c in range(ginv.shape[0]):
-        contrib = torch.where(edge_ok[c][:, None], payload[inv[c].long()], -1)
+    for c in range(ginv.shape[-2]):
+        contrib = torch.where(edge_ok[..., c, :, None], take_rows(payload, inv[..., c, :]), -1)
         best_any = torch.maximum(best_any, contrib)
         best_alive = torch.maximum(
             best_alive, torch.where(is_alive_key(contrib), contrib, -1)
         )
     diag = col[None, :] == col[:, None]
-    self_rumor = torch.diagonal(best_any).clone()
+    self_rumor = torch.diagonal(best_any, dim1=-2, dim2=-1).clone()
     best_any = torch.where(diag, -1, best_any)
     best_alive = torch.where(diag, -1, best_alive)
 
-    view1 = torch.where(cellm, fd_key[:, None], view0)
+    view1 = torch.where(cellm, fd_key[..., None], view0)
     age0 = torch.where(cellm, 0, age.to(torch.int32))
-    alive_row = alive[:, None]
+    alive_row = alive[..., None]
     merged, _ = merge_views(view1, best_any, best_alive)
     merged = torch.where(alive_row, merged, view1)
 
@@ -109,7 +114,7 @@ def tick_core_reference(
     susp2 = torch.where(alive_row, susp2, s_loc)
     rows_next = torch.where(age2 < spread, view2, -1)
     known_cnt = ((view2 >= 0) & ((view2 & DEAD_BIT) == 0) & ~diag).sum(
-        dim=1, dtype=torch.int32
+        dim=-1, dtype=torch.int32
     )
     return (
         view2.to(torch.int32),
@@ -122,8 +127,11 @@ def tick_core_reference(
 
 
 def _check_operands(rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, fd_key):
-    n = view0.shape[0]
-    f = ginv.shape[0]
+    lead = tuple(view0.shape[:-2])
+    n = view0.shape[-1]
+    f = ginv.shape[-2]
+    if len(lead) > 1:
+        raise ValueError(f"view0: expected [N, N] or [B, N, N], got {tuple(view0.shape)}")
     if n == 0 or n % GROUP != 0:
         raise ValueError(f"n={n} is not a positive multiple of {GROUP}")
     if not 1 <= f <= MAX_FANOUT:
@@ -141,6 +149,7 @@ def _check_operands(rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, 
         "fd_key": (fd_key, torch.int32, (n,)),
     }
     for name, (t, dtype, shape) in expect.items():
+        shape = lead + shape
         if t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name}: expected {dtype} {shape}, got {t.dtype} {tuple(t.shape)}"
@@ -152,7 +161,7 @@ def _check_operands(rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, 
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.tick_core_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
+    lib.tick_core_launch.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p
     ]
     lib.tick_core_launch.restype = ctypes.c_int
@@ -176,7 +185,7 @@ def tick_core(
     ``tick_core.launches``; a missing kernel or a refused launch raises.
     Raises ``ValueError`` on a wrong dtype, shape, device or contiguity,
     on n % 8 != 0, on more than :data:`MAX_FANOUT` channels and, for CUDA
-    tensors, on n * n >= 2**31 (:func:`check_offsets`). Index
+    tensors, on n * n >= 2**31 (:func:`check_offsets`, per universe). Index
     operands must be in range, as the fan-out draw and the FD round make
     them (``fd_tgt`` in [-1, n), ``ginv`` a group permutation)."""
     args = (rows, view0, age, susp, ginv, rots, edge_ok, alive, fd_tgt, fd_key)
@@ -186,22 +195,24 @@ def tick_core(
         return tick_core_reference(*args, **consts)
     if view0.device.type != "cuda":
         raise ValueError(f"tick_core: unsupported device {view0.device}")
-    n = view0.shape[0]
+    lead = tuple(view0.shape[:-2])
+    n = view0.shape[-1]
     check_offsets(n)
     lib = LIBRARY.load()
     view2 = torch.empty_like(view0)
     age2 = torch.empty_like(age)
     susp2 = torch.empty_like(susp)
     rows_next = torch.empty_like(rows)
-    self_rumor = torch.empty((n,), dtype=torch.int32, device=view0.device)
+    self_rumor = torch.empty(lead + (n,), dtype=torch.int32, device=view0.device)
     # The launcher zeroes known_cnt on the stream (the CTAs add into it).
-    known_cnt = torch.empty((n,), dtype=torch.int32, device=view0.device)
+    known_cnt = torch.empty(lead + (n,), dtype=torch.int32, device=view0.device)
     stream = torch.cuda.current_stream(view0.device).cuda_stream
     err = lib.tick_core_launch(
         *(t.data_ptr() for t in args),
         view2.data_ptr(), age2.data_ptr(), susp2.data_ptr(), rows_next.data_ptr(),
         self_rumor.data_ptr(), known_cnt.data_ptr(),
-        n, ginv.shape[0], spread, sweep, susp_ticks, age_stale, stream,
+        n, ginv.shape[-2], lead[0] if lead else 1, spread, sweep, susp_ticks, age_stale,
+        stream,
     )
     if err != 0:
         msg = lib.tick_core_error_string(err).decode()

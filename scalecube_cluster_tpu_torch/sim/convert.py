@@ -8,6 +8,10 @@ A sparse state's flight-recorder ring travels as ``d["trace"]``: any
 object or dict holding the ring's fields (the reference's ``TraceRing``,
 or the dict :func:`sparse_state_to_numpy` writes). The sharded recorder is
 not carried.
+
+A stacked ensemble state (sim/ensemble.py) converts the same way: every
+array with a leading universe axis, ``rng`` as ``uint32[B, 2]`` and the
+host tick mirror per universe.
 """
 
 from __future__ import annotations
@@ -44,13 +48,20 @@ def _to_device(d: dict, name: str, dtype, device) -> torch.Tensor:
 
 
 def _rng(d: dict) -> np.ndarray:
-    return np.asarray(d["rng"], dtype=np.uint32).reshape(2).copy()
+    rng = np.asarray(d["rng"], dtype=np.uint32)
+    return (rng if rng.ndim == 2 else rng.reshape(2)).copy()
+
+
+def _t_host(d: dict):
+    """The host tick mirror: an int, or ``int64[B]`` for a stacked state."""
+    tick = np.asarray(d["tick"])
+    return tick.astype(np.int64).copy() if tick.ndim else int(tick)
 
 
 def dense_state_from_numpy(d: dict, device="cuda") -> SimState:
     """Build this package's dense state from a dict of numpy arrays."""
     fields = {name: _to_device(d, name, dt, device) for name, dt in _DENSE_LEAVES.items()}
-    return SimState(rng=_rng(d), t_host=int(np.asarray(d["tick"])), **fields)
+    return SimState(rng=_rng(d), t_host=_t_host(d), **fields)
 
 
 def dense_state_to_numpy(state: SimState) -> dict:
@@ -104,7 +115,7 @@ def sparse_state_from_numpy(d: dict, device="cuda") -> SparseState:
          for name, dt in _OPTIONAL.items()}
     )
     fields["trace"] = None if ring is None else ring_from_fields(ring, device=device)
-    return SparseState(rng=_rng(d), t_host=int(np.asarray(d["tick"])), **fields)
+    return SparseState(rng=_rng(d), t_host=_t_host(d), **fields)
 
 
 def sparse_state_to_numpy(state: SparseState) -> dict:

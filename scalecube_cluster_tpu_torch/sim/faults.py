@@ -188,10 +188,26 @@ def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def _edge_lookup(mat: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
-    """``mat[src, dst]`` honoring the compact [1, 1] layout."""
+    """``mat[src, dst]`` honoring the compact [1, 1] layout. A stacked plan
+    (``[B, M, M]``, sim/ensemble.py) takes index tensors with a leading
+    universe axis (of B or 1) and looks each universe up in its own
+    matrix."""
+    if mat.dim() == 3:
+        return _edge_lookup_stacked(mat, src, dst)
     s = torch.clamp_max(src, mat.shape[0] - 1).long()
     d = torch.clamp_max(dst, mat.shape[1] - 1).long()
     return mat[s, d]
+
+
+def _edge_lookup_stacked(mat: torch.Tensor, src: torch.Tensor, dst: torch.Tensor):
+    b, m = mat.shape[0], mat.shape[1]
+    nd = max(src.dim(), dst.dim())
+    if m == 1:
+        return mat.reshape((b,) + (1,) * (nd - 1))
+    s, d = torch.broadcast_tensors(src.long(), dst.long())
+    shape = (b,) + tuple(s.shape[1:])
+    flat = (s * m + d).expand(shape).reshape(b, -1)
+    return torch.gather(mat.reshape(b, m * m), 1, flat).view(shape)
 
 
 def _zone_pair(world: LinkWorld, mat: torch.Tensor, src, dst) -> torch.Tensor:
@@ -221,6 +237,11 @@ def edge_loss(plan: FaultPlan, src, dst) -> torch.Tensor:
     loss = _edge_lookup(plan.loss, src, dst)
     w = plan.link_world
     if w is not None:
+        if plan.loss.dim() == 3:
+            raise NotImplementedError(
+                "zone worlds inside an ensemble are not ported yet (ROADMAP A11 "
+                "follow-up): stack plans without link_world"
+            )
         q = _zone_pair(w, w.loss, src, dst)
         if plan.loss.shape[0] > 1 and loss.dim() == 2 and loss.shape[-1] == 2:
             loss = 1.0 - (1.0 - loss) * (1.0 - q)

@@ -59,7 +59,7 @@ def make_knobs(
 def suspicion_fill(suspicion_ticks: int, knobs: Knobs | None):
     """The countdown armed on a fresh SUSPECT record: the constant without
     knobs, else ``round(ticks * mult)`` clipped to [1, 32767] (a 0-d int32
-    tensor)."""
+    tensor; ``[B]`` for an ensemble's stacked knobs)."""
     if knobs is None:
         return suspicion_ticks
     scaled = torch.round(suspicion_ticks * knobs.suspicion_mult).to(torch.int32)
@@ -67,8 +67,10 @@ def suspicion_fill(suspicion_ticks: int, knobs: Knobs | None):
 
 
 def edge_live(gossip_fanout: int, knobs: Knobs | None):
-    """``[fanout]`` bool mask of live gossip channels (None without knobs)."""
+    """``[fanout]`` bool mask of live gossip channels (None without knobs);
+    ``[B, fanout]`` for an ensemble's stacked knobs."""
     if knobs is None:
         return None
     dev = knobs.fanout_cap.device
-    return torch.arange(gossip_fanout, dtype=torch.int32, device=dev) < knobs.fanout_cap
+    chans = torch.arange(gossip_fanout, dtype=torch.int32, device=dev)
+    return chans < knobs.fanout_cap[..., None]

@@ -187,7 +187,12 @@ def plan_dirty_at(schedule: FaultSchedule, t: int) -> bool:
 
 
 def _event_masks(schedule: FaultSchedule, t: int, n: int, kinds) -> list[np.ndarray]:
-    host = _host(schedule)
+    return host_event_masks(_host(schedule), t, n, kinds)
+
+
+def host_event_masks(host: _Host, t: int, n: int, kinds) -> list[np.ndarray]:
+    """``[N]`` numpy masks, one per event kind in ``kinds``, of the events
+    a schedule's host mirror fires at tick ``t``."""
     fire = host.ev_tick == t
     node = np.clip(host.ev_node, 0, n - 1)
     out = []
@@ -250,22 +255,23 @@ def apply_events_dense(state: SimState, kill_mask, restart_mask) -> SimState:
     """Scheduled kill/restart on the dense state (the vectorised twin of
     ``sim.state.kill``/``restart``), applied before the tick. The epoch bump
     clamps at EPOCH_MAX (the builder rejects schedules that would reach
-    it). Consumes no RNG."""
-    n = state.view.shape[0]
+    it). Consumes no RNG. An ensemble's stacked state takes ``[B, N]``
+    masks (sim/ensemble.py)."""
+    n = state.view.shape[-1]
     dev = state.device
     col = torch.arange(n, device=dev)
     diag = col[:, None] == col[None, :]
     new_epoch = torch.where(
         restart_mask, torch.clamp_max(state.epoch + 1, merge_ops.EPOCH_MAX), state.epoch
     )
-    zeros_n = torch.zeros((n,), dtype=torch.int32, device=dev)
+    zeros_n = torch.zeros_like(new_epoch)
     self_keys = merge_ops.encode_key(zeros_n, zeros_n, new_epoch)
-    fresh_view = torch.where(diag, self_keys[:, None], merge_ops.UNKNOWN_KEY)
+    fresh_view = torch.where(diag, self_keys[..., None], merge_ops.UNKNOWN_KEY)
     fresh_age = torch.where(diag, 0, AGE_STALE).to(state.rumor_age.dtype)
-    row = restart_mask[:, None]
-    uinf = torch.where(restart_mask[:, None, None], False, state.uinf)
-    if state.uinf.shape[1] == n:
-        uinf = torch.where(restart_mask[None, :, None], False, uinf)
+    row = restart_mask[..., None]
+    uinf = torch.where(restart_mask[..., None, None], False, state.uinf)
+    if state.uinf.shape[-2] == n:
+        uinf = torch.where(restart_mask[..., None, :, None], False, uinf)
     return state.replace(
         alive=(state.alive & ~kill_mask) | restart_mask,
         epoch=new_epoch,
@@ -275,9 +281,9 @@ def apply_events_dense(state: SimState, kill_mask, restart_mask) -> SimState:
         suspect_left=torch.where(row, torch.zeros_like(state.suspect_left), state.suspect_left),
         rows=torch.where(row, fresh_view, state.rows),
         known_cnt=torch.where(restart_mask, 0, state.known_cnt),
-        useen=torch.where(restart_mask[:, None], False, state.useen),
+        useen=torch.where(restart_mask[..., None], False, state.useen),
         uinf=uinf,
-        uflight=torch.where(restart_mask[:, None, None], False, state.uflight),
+        uflight=torch.where(restart_mask[..., None, None], False, state.uflight),
     )
 
 

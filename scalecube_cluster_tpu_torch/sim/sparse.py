@@ -691,21 +691,22 @@ def _free_plan(params: SparseParams, state: SparseState):
     ``pallas_core`` with the 'wb_mask' fold the kernel carries this mask
     tick to tick (``wb_pinned``); when ``wb_valid`` is False the rule is
     recomputed — both are evaluated and selected, the form of the
-    reference's cond. Returns ``freeing [S] bool``."""
+    reference's cond. Returns ``freeing [S] bool`` (``[B, S]`` for an
+    ensemble's stacked state)."""
     p = params.base
     n = p.n
     col = torch.arange(n, dtype=_I32, device=state.device)
     active = state.slot_subj >= 0
-    own_row = col[:, None] == state.slot_subj[None, :]
+    own_row = col[:, None] == state.slot_subj[..., None, :]
     stale_done = state.age.to(_I32) > p.periods_to_sweep
     holding = (
         (state.age < p.periods_to_spread)
         | (state.susp > 0)
         | (is_dead_key(state.slab) & ~stale_done & ~own_row)
     )
-    pinned = (holding & state.alive[:, None]).any(dim=0)
+    pinned = (holding & state.alive[..., None]).any(dim=-2)
     if state.wb_pinned is not None and params.pallas_core and "wb_mask" in params.pallas_fold:
-        pinned = torch.where(state.wb_valid, state.wb_pinned, pinned)
+        pinned = torch.where(state.wb_valid[..., None], state.wb_pinned, pinned)
     return active & ~pinned
 
 
@@ -873,6 +874,16 @@ def _sync_zeros(n, W, collect, dev):
     return out
 
 
+def sparse_route(params: SparseParams) -> bool:
+    """True where the [N, S] core is the fused kernel: the reference's gate
+    (sim/sparse.py:1435), ``pallas_core``, n % 32 == 0, S % 128 == 0 and
+    S < 4096."""
+    n, s = params.base.n, params.slot_budget
+    return (
+        params.pallas_core and n % SPARSE_GROUP == 0 and s % 128 == 0 and s < 1 << SLOT_BITS
+    )
+
+
 def sparse_tick(
     params: SparseParams,
     state: SparseState,
@@ -920,10 +931,7 @@ def sparse_tick(
     # The reference's core route: the fused kernel where its gate holds,
     # else the XLA chain (the plain core, 8-row groups when n % 32 != 0).
     group = SPARSE_GROUP if n % SPARSE_GROUP == 0 else GROUP
-    use_kernel = (
-        params.pallas_core and group == SPARSE_GROUP and S % 128 == 0
-        and S < 1 << SLOT_BITS
-    )
+    use_kernel = sparse_route(params)
     tracing = state.trace is not None
     if tracing and use_kernel:
         raise ValueError(

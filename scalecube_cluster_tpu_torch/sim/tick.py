@@ -112,8 +112,8 @@ def xla_row_means_f32(match: torch.Tensor) -> torch.Tensor:
     reference's ``jnp.mean(match, axis=1)`` gives them: XLA turns the
     division by the constant M into a product with M's float32 reciprocal
     (tests/test_torch_dense.py)."""
-    m = torch.tensor(float(match.shape[1]), dtype=torch.float32, device=match.device)
-    return match.sum(dim=1, dtype=torch.float32) * torch.reciprocal(m)
+    m = torch.tensor(float(match.shape[-1]), dtype=torch.float32, device=match.device)
+    return match.sum(dim=-1, dtype=torch.float32) * torch.reciprocal(m)
 
 
 def xla_cpu_sum_f32(x: torch.Tensor) -> torch.Tensor:
@@ -124,18 +124,20 @@ def xla_cpu_sum_f32(x: torch.Tensor) -> torch.Tensor:
     left, which is summed in order. Only float32 adds, each rounded as IEEE
     demands, so the value is the same on every device. It equals the
     reference's ``jnp.sum`` on XLA:CPU at every length
-    (tests/test_torch_dense.py)."""
+    (tests/test_torch_dense.py). A leading axis (an ensemble's universes)
+    sums each row the same way."""
     w = XLA_REDUCE_WINDOW
-    while x.numel() > w:
-        pad = -x.numel() % w
-        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).view(-1, w)
-        acc = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    lead = tuple(x.shape[:-1])
+    while x.shape[-1] > w:
+        pad = -x.shape[-1] % w
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2)).view(lead + (-1, w))
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
         for i in range(w):
-            acc = acc + x[:, i]
+            acc = acc + x[..., i]
         x = acc
-    total = torch.zeros((), dtype=x.dtype, device=x.device)
-    for i in range(x.numel()):
-        total = total + x[i]
+    total = torch.zeros(lead, dtype=x.dtype, device=x.device)
+    for i in range(x.shape[-1]):
+        total = total + x[..., i]
     return total
 
 

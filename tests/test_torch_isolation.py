@@ -50,7 +50,9 @@ def test_sources_exist():
                    "tools/profile_tick.py", "tools/probe_kernels.py",
                    "tools/trace_explain.py", "obs/__init__.py", "obs/counters.py",
                    "obs/export.py", "obs/latency.py", "obs/profiling.py",
-                   "obs/slo.py", "obs/trace.py", "obs/tracer.py"):
+                   "obs/slo.py", "obs/trace.py", "obs/tracer.py", "obs/ensemble.py",
+                   "sim/ensemble.py", "sim/ensemble_tick.py", "testlib/__init__.py",
+                   "testlib/invariants.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
 
@@ -88,3 +90,58 @@ def test_package_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_certifier_copy_matches_reference():
+    """The port's copy of the SWIM certifiers (``testlib/invariants.py``)
+    against the reference's on the same traces: ``REQUIRED_KEYS``,
+    ``heal_bound`` for several parameter sets, ``certify_traces``'s summary
+    and ``certify_population``'s verdicts, clean and with each of C1, C2,
+    C4 and C6 broken."""
+    import dataclasses
+
+    import numpy as np
+
+    from scalecube_cluster_tpu.testlib import invariants as JI
+    from scalecube_cluster_tpu_torch.sim.params import SimParams as TSimParams
+    from scalecube_cluster_tpu_torch.testlib import invariants as TI
+    from tests.test_sim import small_params
+
+    assert TI.REQUIRED_KEYS == JI.REQUIRED_KEYS
+    assert TI._OPTIONAL_EVENT_KEYS == JI._OPTIONAL_EVENT_KEYS
+    for kw in ({}, {"suspicion_ticks": 40}, {"sync_period_ticks": 3}):
+        jp = small_params(32, **kw)
+        assert TI.heal_bound(TSimParams(**dataclasses.asdict(jp))) == JI.heal_bound(jp)
+    rng = np.random.default_rng(7)
+    b, t = 5, 120
+    tr = {k: np.zeros((b, t), np.int32) for k in JI.REQUIRED_KEYS}
+    tr["fault_blocked"] = rng.integers(0, 3, (b, t)).astype(np.int32)
+    tr["link_delivered"] = rng.integers(0, 9, (b, t)).astype(np.int32)
+    tr["link_attempts"] = tr["link_delivered"] + tr["fault_blocked"]
+    tr["plan_dirty"] = np.ones((b, t), bool)
+    tr["plan_dirty"][:, 40:] = False
+    tr["fault_blocked"][:, 40:] = 0
+    tr["link_attempts"] = tr["link_delivered"] + tr["fault_blocked"]
+    tr["pings"] = rng.integers(3, 6, (b, t)).astype(np.int32)
+    tr["acks"] = tr["pings"] - (rng.random((b, t)) < 0.2)
+    tr["suspicions_raised"][:, 30] = 2
+    tr["inc_max"] = np.cumsum(rng.random((b, t)) < 0.05, axis=1).astype(np.int32)
+    tr["restarts_fired"][:, 10] = 1
+    tr["epoch_max"][:, 10:] = 1
+    tr["plan_dirty"] = tr["plan_dirty"].astype(bool)
+    tr["link_delivered"][1, 50] += 1  # C1
+    tr["fault_blocked"][2, 60] = 1  # C2 on a clean tick
+    tr["link_attempts"][2, 60] += 1
+    tr["epoch_max"][3, 70:] = 2  # C4: no restart at tick 70
+    tr["pings"][4, :31] = tr["acks"][4, :31]  # C6: no miss before the suspicion
+    jp = small_params(32)
+    tp = TSimParams(**dataclasses.asdict(jp))
+    final = np.array([1.0, 1.0, 0.5, 1.0, 1.0], np.float32)
+    want = JI.certify_population(jp, tr, final_convergence=final)
+    got = TI.certify_population(tp, tr, final_convergence=final)
+    assert list(got["ok"]) == [True, False, False, False, False]
+    assert np.array_equal(got["ok"], want["ok"])
+    assert got["violations"] == want["violations"]
+    assert got["summaries"] == want["summaries"]
+    one = {k: v[0] for k, v in tr.items()}
+    assert TI.certify_traces(tp, one) == JI.certify_traces(jp, one)
