@@ -143,7 +143,24 @@ Phases, each of which must pass (any failure exits non-zero):
     universes·member·rounds/s, peak memory, then launches a tick and the
     device idle share under the profiler; and the ``--ensemble 16 1024``
     rung beside the same rung at B=1;
-24. the kernel table as one JSON line, the card's name and power limit,
+24. the Rapid engine (sim/rapid.py, no kernel of its own), card vs CPU at
+    n=16 and n=64 through the split-vote schedule of
+    tests/test_rapid_fallback.py: the bare fast path (parked), the fallback
+    with the flight recorder and a protocol join, 5% loss with knobs, an
+    elastic run with joins then ``promote_rapid_state``, and a B=4 ensemble
+    with the fallback — every leaf, metric and ring field equal, R1-R5
+    certified, the fallback and join chains whole, no kernel launched;
+25. the ``--rapid 1024`` rung: ms/tick, member·rounds/s, peak memory,
+    synchronising calls a tick, and launches a tick and the idle share
+    under the profiler;
+26. Rapid at the dense width: n=10240, k=8, the fallback, a clean plan, 64
+    members killed at tick 4 (every 160th row) and 32 of them restarted at
+    tick 30 through the handshake, 60 collected ticks with a 1 << 20 ring —
+    the batch committed as one view change on every live member, the
+    readmission tick, R1-R5 and the chain walk certified, conservation on
+    every tick; ms/tick (quiet against SYNC / vote ticks), peak memory and
+    the synchronising calls of a quiet tick;
+27. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
@@ -2151,6 +2168,301 @@ def phase_sparse_ensemble_full_width(torch):
                                    "profile": prof, "rung": rung}
 
 
+def _short_kernel(name: str) -> str:
+    """A device kernel's name without its namespaces, cut to 90 characters."""
+    for prefix in ("void ", "at::native::", "(anonymous namespace)::", "at::"):
+        name = name.replace(prefix, "")
+    return name[:90]
+
+
+def _rapid_split_vote(torch, n, device, with_join):
+    """tests/test_rapid_fallback.py::_split_vote_schedule at n members (its
+    own at n=16): members 0 and n/2 killed at tick 10 behind a one-way
+    block {n/2+1..n-1} -> {1..n/2-1} over ticks [15, 17), so the two camps
+    lock different cuts and the fast path parks; ``with_join`` re-admits
+    n/2 through the handshake at tick 40."""
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+
+    h = n // 2
+    blk = torch.zeros((n, n), dtype=torch.bool, device=device)
+    blk[h + 1:, 1:h] = True
+    one_way = FaultPlan.uniform(device=device).replace(block=blk)
+    b = (ScheduleBuilder(n).add_segment(1, FaultPlan.clean(n, device=device))
+         .add_segment(15, one_way).add_segment(17, FaultPlan.clean(n, device=device))
+         .kill(10, 0).kill(10, h))
+    if with_join:
+        b.join(40, h)
+    return b.build()
+
+
+def _rapid_flat(state):
+    """A Rapid state as flat numpy arrays, the fallback plane's leaves as
+    ``fb.<field>`` and the ring's as ``trace.<field>``."""
+    from scalecube_cluster_tpu_torch.sim.convert import rapid_state_to_numpy
+
+    flat = rapid_state_to_numpy(state)
+    for sub in ("fb", "trace"):
+        leaves = flat.pop(sub, None)
+        if leaves is not None:
+            flat.update({f"{sub}.{k}": v for k, v in leaves.items()})
+    return flat
+
+
+def phase_rapid_card_vs_cpu(torch):
+    """Phase 24: the Rapid engine on the card equals it on the CPU."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.obs.trace import ring_events
+    from scalecube_cluster_tpu_torch.sim import ensemble as ens
+    from scalecube_cluster_tpu_torch.sim import rapid
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.knobs import Knobs
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+    from scalecube_cluster_tpu_torch.testlib.invariants import (
+        certify_rapid_population,
+        certify_rapid_traces,
+    )
+    from scalecube_cluster_tpu_torch.tools.trace_explain import check_rapid_chains
+
+    def host(tr):
+        return {k: v.cpu().numpy() for k, v in tr.items()}
+
+    def solo(n, dev, plan, ticks, chunk, knobs=None, promote=None, **init):
+        params = rapid.RapidParams(n=n)
+        st = rapid.init_rapid_full_view(params, seed=7, device=dev, **init)
+        kn = None if knobs is None else Knobs(
+            suspicion_mult=torch.tensor(knobs[0], device=dev),
+            fanout_cap=torch.tensor(knobs[1], dtype=torch.int32, device=dev))
+        snaps = []
+        for _ in range(ticks // chunk):
+            st, tr = rapid.run_rapid_ticks(params, st, plan(n, dev), chunk, knobs=kn)
+            snaps.append((_rapid_flat(st), host(tr)))
+        if promote is not None:
+            params, st = rapid.promote_rapid_state(params, st, promote[0])
+            st, tr = rapid.run_rapid_ticks(params, st, promote[1](promote[0], dev), promote[2])
+            snaps.append((_rapid_flat(st), host(tr)))
+        return snaps, st, params
+
+    def elastic_joins(n_live):
+        def plan(n, dev):
+            b = ScheduleBuilder(n).add_segment(1, FaultPlan.uniform(2.0, device=dev))
+            for i, node in enumerate(range(n - 1, n_live - 1, -1)):
+                b.join(3 + 2 * i, node)
+            return b.build()
+        return plan
+
+    def promoted_joins(n, dev):
+        return (ScheduleBuilder(n).add_segment(1, FaultPlan.uniform(2.0, device=dev))
+                .join(45, n - 1).join(47, n - 2).build())
+
+    reset_counts()
+    for n in (16, 64):
+        cases = [
+            ("bare fast path, split vote", lambda n, d: _rapid_split_vote(torch, n, d, False), 120, 20,
+             {}, {}),
+            ("fallback + recorder, split vote and a join",
+             lambda n, d: _rapid_split_vote(torch, n, d, True), 60, 20, {},
+             {"fallback": True, "trace_capacity": 1 << 14}),
+            ("5% loss with knobs (L x1.5, fan-out cap 7)",
+             lambda n, d: FaultPlan.uniform(5.0, device=d), 60, 20, {"knobs": (1.5, 7)}, {}),
+            (f"elastic {3 * n // 4} of {n} live, joins, then promoted to {3 * n // 2}",
+             elastic_joins(3 * n // 4), 40, 20,
+             {"promote": (3 * n // 2, promoted_joins, 20)},
+             {"trace_capacity": 1 << 14, "n_live": 3 * n // 4}),
+        ]
+        for tag, plan, ticks, chunk, kw, init in cases:
+            card, st_card, params = solo(n, "cuda", plan, ticks, chunk, **kw, **init)
+            cpu, _, _ = solo(n, "cpu", plan, ticks, chunk, **kw, **init)
+            _compare_runs(f"[24] n={n} {tag}", card, cpu)
+            whole = {k: np.concatenate([c[1][k] for c in card[:ticks // chunk]])
+                     for k in card[0][1]}
+            fb = "fallback" in init
+            certified = "not certified: a joiner holds a view of the same id its cohort does " \
+                "not hold yet, which R1 rejects by design"
+            if "n_live" not in init:
+                summary = certify_rapid_traces(params, whole, fallback=fb)
+                certified = (
+                    f"R1-R5 ({'fallback' if fb else 'fast path'}): view_changes "
+                    f"{summary['view_changes']}, parked {summary['views_parked']}, "
+                    f"fallback_commits {summary.get('fallback_commits', 0)}"
+                )
+            extra = ""
+            if st_card.trace is not None:
+                chains = check_rapid_chains(ring_events(st_card.trace))
+                if chains:
+                    fail(f"[24] n={n} {tag}: chain violations {chains[:3]}")
+                extra = f", {int(st_card.trace.cursor)} ring events, chains whole"
+            say(f"[24] n={n} {tag}: {ticks} ticks, card == CPU on every leaf, metric and "
+                f"ring field after every chunk; {certified}; final convergence "
+                f"{float(card[-1][1]['convergence'][-1])}{extra}")
+
+    b, n, ticks, chunk = 4, 64, 60, 20
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = rapid.RapidParams(n=n)
+        states = rapid.init_ensemble_rapid(params, range(7, 7 + b), fallback=True, device=dev)
+        plans = ens.stack_universes(_rapid_split_vote(torch, n, dev, True) for _ in range(b))
+        snaps = []
+        for _ in range(ticks // chunk):
+            states, tr = rapid.run_ensemble_rapid_ticks(params, states, plans, chunk)
+            snaps.append((_rapid_flat(states), host(tr)))
+        runs[dev] = snaps
+    _compare_runs(f"[24] ensemble B={b} n={n}", runs["cuda"], runs["cpu"])
+    whole = {k: np.concatenate([c[1][k] for c in runs["cuda"]], axis=1) for k in runs["cuda"][0][1]}
+    verdict = certify_rapid_population(rapid.RapidParams(n=n), whole, fallback=True)
+    if not bool(np.all(verdict["ok"])):
+        fail(f"[24] ensemble certification failed: {verdict['violations']}")
+    counts = read_counts()
+    if any(counts.values()):
+        fail(f"[24] Rapid launched a kernel: {counts}")
+    say(f"[24] ensemble B={b} n={n} with the fallback, split votes and joins: {ticks} ticks, "
+        f"card == CPU on every leaf of every universe and every [B, T] trace; R1-R5 certify "
+        f"every universe; no kernel launched")
+
+
+def phase_rapid_rung(torch):
+    """Phase 25: the ``--rapid 1024`` rung on the card."""
+    from scalecube_cluster_tpu_torch.bench import measure_rapid, profile_rapid
+
+    row = measure_rapid(1024)
+    prof = profile_rapid(1024)
+    say(f"[25] --rapid 1024 (5% loss, collect=False): {row['ms_per_tick']:.3f} ms/tick "
+        f"(chunks {', '.join(f'{c:.3f}' for c in row['chunk_ms_per_tick'])}), "
+        f"{row['value']:.1f} member·rounds/s, peak {row['peak_gib']:.3f} GiB, "
+        f"{row['sync_calls_per_tick']:.3f} synchronising calls a tick; profile: "
+        f"{prof['device_launches_per_tick']:.3f} launches a tick, device busy "
+        f"{prof['device_busy_ms_per_tick']:.3f} ms/tick, idle share "
+        f"{prof['device_idle_share']:.4f}")
+    return {"row": row, "profile": prof}
+
+
+def phase_rapid_dense_width(torch):
+    """Phase 26: Rapid with the fallback at the dense width, a 64-member
+    mass kill and 32 restarts through the handshake, collected and traced,
+    certified R1-R5 and by the chain walk."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.bench import _device_profile, sync_calls
+    from scalecube_cluster_tpu_torch.obs.trace import ring_events
+    from scalecube_cluster_tpu_torch.obs.tracer import (
+        TK_FB_ACCEPT,
+        TK_FB_PREPARE,
+        TK_JOIN_ACK,
+        TK_JOIN_CONFIRM,
+        TK_JOIN_REQ,
+        TK_VIEW_COMMIT,
+        TK_VOTE,
+    )
+    from scalecube_cluster_tpu_torch.sim import rapid
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+    from scalecube_cluster_tpu_torch.testlib.invariants import certify_rapid_traces
+    from scalecube_cluster_tpu_torch.tools.trace_explain import check_rapid_chains
+
+    n, ticks, kill_t, restart_t = 10240, 60, 4, 30
+    victims = list(range(0, n, 160))  # every victim keeps live ring observers
+    back = victims[::2]
+    b = ScheduleBuilder(n).add_segment(1, FaultPlan.uniform(0.0, device="cuda"))
+    for v in victims:
+        b.kill(kill_t, v)
+    for v in back:
+        b.restart(restart_t, v)
+    sched = b.build()
+    params = rapid.RapidParams(n=n)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    st = rapid.init_rapid_full_view(params, seed=0, trace_capacity=1 << 20, fallback=True,
+                                    device="cuda")
+    per_tick, traces = [], []
+    syncs = prof = None
+    for t in range(1, ticks + 1):
+        t0 = time.perf_counter()
+        st, tr = rapid.run_rapid_ticks(params, st, sched, 1)
+        traces.append({k: v.cpu().numpy() for k, v in tr.items()})
+        per_tick.append(time.perf_counter() - t0)
+        if t == 20:  # ticks 21-25 (one SYNC tick) from a copy: host reads, profile
+            probe = st.replace(trace=None)  # the recorder reads nothing; keep the ring
+
+            def five(_=None):
+                rapid.run_rapid_ticks(params, probe, sched, 5, collect=False)
+
+            syncs = sync_calls(five) / 5
+            prof = _device_profile(five, 5)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    tr = {k: np.concatenate([x[k] for x in traces]) for k in traces[0]}
+    if any(read_counts().values()):
+        fail(f"[26] Rapid launched a kernel: {read_counts()}")
+    cons = tr["link_attempts"] == tr["link_delivered"] + tr["fault_blocked"] + tr["fault_lost"]
+    if not cons.all():
+        fail(f"[26] conservation broken at ticks {np.flatnonzero(~cons)[:5] + 1}")
+    if int(tr["trace_overflow"][-1]) != 0:
+        fail(f"[26] the ring overflowed: {int(tr['trace_overflow'][-1])}")
+    for k, v in tr.items():
+        if not np.all(np.isfinite(v.astype(np.float64))):
+            fail(f"[26] trace {k} is not finite")
+    summary = certify_rapid_traces(params, tr, fallback=True)
+    kinds = {TK_VIEW_COMMIT, TK_FB_ACCEPT, TK_FB_PREPARE, TK_VOTE, TK_JOIN_CONFIRM,
+             TK_JOIN_ACK, TK_JOIN_REQ}
+    events = ring_events(st.trace, kinds=kinds)
+    chains = check_rapid_chains(events)
+    if chains:
+        fail(f"[26] chain violations: {chains[:3]}")
+    vc_ticks = np.flatnonzero(tr["view_changes"] > 0) + 1
+    if not len(vc_ticks):
+        fail("[26] the mass kill never committed")
+    first = int(vc_ticks[0])
+    i = first - 1
+    live = tr["alive_mask"][i]
+    one_change = bool(
+        tr["view_changes"][i] == live.sum()
+        and np.all(tr["view_size"][i][live] == n - len(victims))
+        and np.all(tr["view_id"][i][live] == 1)
+        and tr["verdicts_dead"][i] == len(victims) * live.sum()
+    )
+    if not one_change:
+        fail(f"[26] the 64-member batch did not commit as one view change on every live "
+             f"member at tick {first}: view_changes {int(tr['view_changes'][i])} of "
+             f"{int(live.sum())} live, sizes {np.unique(tr['view_size'][i][live]).tolist()}")
+    readmit = [int(t) for t in vc_ticks if t > restart_t and tr["verdicts_alive"][t - 1] > 0]
+    final_live = tr["alive_mask"][-1]
+    final_sizes = np.unique(tr["view_size"][-1][final_live]).tolist()
+    ms = np.array(per_tick) * 1e3
+    # Busy ticks broadcast over [N, N] (votes, fallback or join messages, the
+    # SYNC round); the first tick (the run's set-up) is left out of both.
+    busy = (tr["msgs_sync"] > 0)[1:]
+    later = ms[1:]
+    say(f"[26] Rapid n={n} k={params.k} fallback, clean plan, {len(victims)} killed at tick "
+        f"{kill_t} (every 160th row), {len(back)} restarted at {restart_t}, {ticks} ticks "
+        f"collected, ring 1 << 20: the batch commits at tick {first} as one view change on "
+        f"every live member ({int(tr['view_changes'][i])} members, view size "
+        f"{n - len(victims)}, view id 1); readmission commits at ticks {readmit[:4]}; final "
+        f"view sizes {final_sizes}, convergence {float(tr['convergence'][-1])}")
+    say(f"[26] R1-R5 certified (fallback): view_changes {summary['view_changes']}, parked "
+        f"{summary['views_parked']}, fallback_commits {summary['fallback_commits']}, "
+        f"join_requests {summary['join_requests']}, join_confirms {summary['join_confirms']}; "
+        f"{int(st.trace.cursor)} ring events, {len(events)} on the chain kinds, every "
+        f"fallback commit and join confirm walks back whole; link_attempts == delivered + "
+        f"blocked + lost on all {ticks} ticks")
+    say(f"[26] ms per tick: {np.round(ms, 3).tolist()}")
+    say(f"[26] {ms.mean():.3f} ms/tick mean over {ticks} ticks, each ending in a fetch; ticks "
+        f"2-{ticks} sending no [N, N] message: median {np.median(later[~busy]):.3f} (min "
+        f"{later[~busy].min():.3f}, max {later[~busy].max():.3f}, {int((~busy).sum())} ticks); "
+        f"ticks sending votes, fallback or join messages or the SYNC round: median "
+        f"{np.median(later[busy]):.3f} (max {later[busy].max():.3f}, {int(busy.sum())} ticks); "
+        f"tick 1 {ms[0]:.3f}; peak device memory {peak_gib:.3f} GiB")
+    top = sorted(prof["top_device_ms_per_tick"].items(), key=lambda kv: -kv[1][0])[:6]
+    say(f"[26] ticks 21-25 (one SYNC tick), uncollected, from a copy at tick 20: "
+        f"{syncs:.1f} synchronising calls a tick; profile {prof['wall_ms_per_tick']:.3f} "
+        f"ms/tick, device busy {prof['device_busy_ms_per_tick']:.3f} ms/tick, idle share "
+        f"{prof['device_idle_share']:.4f}, {prof['device_launches_per_tick']:.1f} launches a "
+        f"tick; top kernels (ms, launches a tick): "
+        + "; ".join(f"{_short_kernel(name)} {v[0]:.3f} {v[1]:.1f}" for name, v in top))
+    return {"ms": ms.tolist(), "first_commit": first, "readmit": readmit,
+            "peak_gib": peak_gib, "syncs": syncs, "profile": prof}
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None,
                   batched=None):
     entry = {
@@ -2215,6 +2527,9 @@ def main() -> int:
     batched_rows = phase_batched_kernels(torch)
     ens_dense_launches, ens_card_launches = phase_ensemble_card_vs_cpu(torch)
     ens_launches, _ = phase_sparse_ensemble_full_width(torch)
+    phase_rapid_card_vs_cpu(torch)
+    phase_rapid_rung(torch)
+    phase_rapid_dense_width(torch)
 
     kernels = {
         "kernels": [
@@ -2273,7 +2588,7 @@ def main() -> int:
             ),
         ]
     }
-    say(f"[24] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[27] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

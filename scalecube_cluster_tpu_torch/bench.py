@@ -43,6 +43,13 @@ warm-up and ``reps`` timed 40-tick chunks (collect=False, each ending in a
 fetch from the stacked view); the value is universes·member·rounds/s
 (:func:`measure_ensemble`). ``--profile`` works on it as on the engines.
 
+Rapid (``bench.py::_measure_rapid``, ``--rapid [n]``, default n=1024):
+the consistent-membership engine (sim/rapid.py) with ``RapidParams(n)``
+under ``FaultPlan.uniform(5.0)``, collect=False, one warm-up and ``reps``
+timed 40-tick chunks, each ending in a fetch from ``member_mask``; the row
+adds the peak device memory and the synchronising CUDA calls a tick of one
+more chunk (:func:`measure_rapid`). ``--profile`` works on it.
+
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
 [--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``, or
 ``--tracer-overhead [n] [S]``) prints one JSON line per run of ``CLI_REPS``
@@ -77,6 +84,7 @@ from scalecube_cluster_tpu_torch.sim.ensemble import (
 )
 from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
 from scalecube_cluster_tpu_torch.sim.params import SimParams
+from scalecube_cluster_tpu_torch.sim.rapid import RapidParams, init_rapid_full_view, run_rapid_ticks
 from scalecube_cluster_tpu_torch.sim.run import run_ticks
 from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
 from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
@@ -361,6 +369,80 @@ def profile_ensemble(b_count: int, n: int = 1024, ticks: int = 40, chunk: int = 
     return row
 
 
+def sync_calls(run) -> int:
+    """Synchronising CUDA calls ``run()`` makes, counted as the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+
+
+def _rapid_path(n: int, chunk: int):
+    """The ``--rapid`` rung's set-up on the card after one warm-up chunk."""
+    params = RapidParams(n=n)
+    state = init_rapid_full_view(params, device="cuda")
+    plan = FaultPlan.uniform(loss_percent=5.0, device="cuda")
+    state, _ = run_rapid_ticks(params, state, plan, chunk, collect=False)
+    bool(state.member_mask[0, 0])
+    return params, state, plan
+
+
+def measure_rapid(n: int = 1024, chunk: int = 40, reps: int = 4) -> dict:
+    """The ``--rapid [n]`` rung (bench.py::_measure_rapid): one warm-up and
+    ``reps`` timed ``chunk``-tick runs (collect=False), each ending in a
+    fetch from ``member_mask``; the reference's member·rounds/s row, plus
+    ms/tick, the peak device memory over the timed chunks and the
+    synchronising calls a tick of one more chunk."""
+    params, state, plan = _rapid_path(n, chunk)
+    torch.cuda.reset_peak_memory_stats()
+    per_chunk = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        state, _ = run_rapid_ticks(params, state, plan, chunk, collect=False)
+        bool(state.member_mask[0, 0])
+        per_chunk.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    dt = sum(per_chunk)
+    value = n * reps * chunk / dt
+    syncs = sync_calls(lambda: run_rapid_ticks(params, state, plan, chunk, collect=False))
+    return {
+        "metric": "member_gossip_rounds_per_sec",
+        "value": value,
+        "unit": "member·rounds/s",
+        "vs_baseline": value / BASELINE_MEMBER_ROUNDS_PER_SEC,
+        "ns_per_member": 1e9 / value,
+        "n_members": n,
+        "engine": "rapid",
+        "k_observers": params.k,
+        "ms_per_tick": dt * 1e3 / (reps * chunk),
+        "chunk_ms_per_tick": [c * 1e3 / chunk for c in per_chunk],
+        "peak_gib": peak / 2**30,
+        "sync_calls_per_tick": syncs / chunk,
+    }
+
+
+def profile_rapid(n: int = 1024, ticks: int = 40, chunk: int = 40) -> dict:
+    """Where the ``--rapid`` rung's time goes on the card: after one
+    warm-up chunk, the same ``ticks`` ticks from one state, untraced and
+    traced (:func:`_device_profile`; the tick leaves its input as it was)."""
+    params, state, plan = _rapid_path(n, chunk)
+
+    def run(_):
+        run_rapid_ticks(params, state, plan, ticks, collect=False)
+
+    row = {"engine": "rapid", "n": n}
+    row.update(_device_profile(run, ticks))
+    return row
+
+
 def measure_geo(n: int = 1024, chunk: int = 40, reps: int = 4) -> dict:
     """The ``--geo [n]`` rung (bench.py::_measure_geo): the dense engine
     (LAN preset, ``pallas_delivery`` off as there, no kill, seeds [0, 1])
@@ -552,6 +634,8 @@ def main(argv) -> int:
                     "(default 4096; the positional S overrides its slab width)")
     ap.add_argument("--ensemble", type=int, nargs="+", default=None, metavar="B",
                     help="the dense ensemble rung: B universes [of N members, default 1024]")
+    ap.add_argument("--rapid", type=int, nargs="?", const=1024, default=None, metavar="N",
+                    help="the Rapid engine rung at N members (default 1024)")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
@@ -572,6 +656,12 @@ def main(argv) -> int:
             emit("bench_ensemble_profile", profile_ensemble(b_count, n))
         else:
             emit("bench_ensemble", measure_ensemble(b_count, n))
+        return 0
+    if args.rapid is not None:
+        if args.profile:
+            emit("bench_rapid_profile", profile_rapid(args.rapid))
+        else:
+            emit("bench_rapid", measure_rapid(args.rapid))
         return 0
     if args.tracer_overhead is not None:
         emit("bench_tracer", measure_tracer_overhead(args.tracer_overhead, args.slot_budget)[0])

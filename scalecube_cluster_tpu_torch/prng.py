@@ -10,7 +10,8 @@ trajectory is its output, so every draw here must reproduce jax's bits:
   derivation never depends on device data, so it costs no device sync);
 - :func:`random_bits` hashes the flat element index of the requested shape
   (the partitionable counter layout: high word 0, low word the index) and
-  XORs the two output words;
+  XORs the two output words, so :func:`random_bits_at` / :func:`uniform_at`
+  give the same bits at chosen indices without drawing the rest;
 - :func:`uniform` keeps the top 23 bits as a float32 mantissa in [1, 2) and
   subtracts 1; :func:`randint` is jax's two-draw span algorithm; and
   :func:`permutation` is ``_shuffle``: ceil(3·ln(n)/ln(2³²−1)) rounds of a
@@ -115,11 +116,42 @@ def random_bits(key, shape, device) -> torch.Tensor:
     return (b1 ^ b2).reshape(shape)
 
 
-def uniform(key, shape, device) -> torch.Tensor:
-    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
-    bits = random_bits(key, shape, device)
+def random_bits_at(key, counters: torch.Tensor, universe: torch.Tensor | None = None):
+    """The bits :func:`random_bits` gives at the flat element indices
+    ``counters`` (int64, any shape) of a draw, without drawing the rest:
+    with the partitionable layout an element's bits depend only on its
+    index. A :class:`KeyBatch` takes ``universe``, the universe of each
+    counter (broadcast against ``counters``)."""
+    zeros = torch.zeros_like(counters)
+    if isinstance(key, KeyBatch):
+        if key.size == 1:
+            k1, k2 = (int(w) for w in key.words[0])
+            b1, b2 = _threefry2x32(k1, k2, zeros, counters)
+        else:
+            sched = key.schedule(counters.device)[universe.long().expand(counters.shape)]
+            b1, b2 = _threefry_rows(sched.reshape(-1, _SCHEDULE_WORDS),
+                                    zeros.reshape(-1, 1), counters.reshape(-1, 1))
+            b1, b2 = b1.view(counters.shape), b2.view(counters.shape)
+        return b1 ^ b2
+    k1, k2 = _words(key)
+    b1, b2 = _threefry2x32(k1, k2, zeros, counters)
+    return b1 ^ b2
+
+
+def _unit_float(bits: torch.Tensor) -> torch.Tensor:
     fbits = ((bits >> 9) | 0x3F800000).to(torch.int32)
     return torch.clamp_min(fbits.view(torch.float32) - 1.0, 0.0)
+
+
+def uniform(key, shape, device) -> torch.Tensor:
+    """``jax.random.uniform(key, shape)``: float32 in [0, 1)."""
+    return _unit_float(random_bits(key, shape, device))
+
+
+def uniform_at(key, counters: torch.Tensor, universe: torch.Tensor | None = None):
+    """:func:`uniform`'s values at the flat indices ``counters`` only
+    (:func:`random_bits_at`)."""
+    return _unit_float(random_bits_at(key, counters, universe))
 
 
 def gumbel_order(key, shape, device) -> torch.Tensor:

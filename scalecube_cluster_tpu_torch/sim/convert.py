@@ -12,6 +12,10 @@ not carried.
 A stacked ensemble state (sim/ensemble.py) converts the same way: every
 array with a leading universe axis, ``rng`` as ``uint32[B, 2]`` and the
 host tick mirror per universe.
+
+A Rapid state (sim/rapid.py) carries its fallback plane as ``d["fb"]``
+(an object or dict of the ``FallbackState`` fields) and its ring as
+``d["trace"]``, both optional.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import numpy as np
 import torch
 
 from scalecube_cluster_tpu_torch.obs.tracer import ring_from_fields, ring_to_numpy
+from scalecube_cluster_tpu_torch.sim.rapid import FallbackState, RapidState
 from scalecube_cluster_tpu_torch.sim.sparse import SparseState
 from scalecube_cluster_tpu_torch.sim.state import SimState
 
@@ -131,5 +136,78 @@ def sparse_state_to_numpy(state: SparseState) -> dict:
             out[name] = np.array(value.cpu())
     if state.trace is not None:
         out["trace"] = ring_to_numpy(state.trace)
+    out["rng"] = np.asarray(state.rng, dtype=np.uint32).copy()
+    return out
+
+
+#: The Rapid state's and its fallback plane's tensor leaves.
+_RAPID_LEAVES = {
+    "member_mask": torch.bool,
+    "view_id": torch.int32,
+    "edge_fail": torch.int32,
+    "edge_join": torch.int32,
+    "vote_rm": torch.bool,
+    "vote_add": torch.bool,
+    "voted": torch.bool,
+    "epoch": torch.int32,
+    "alive": torch.bool,
+    "tick": torch.int32,
+}
+_FALLBACK_LEAVES = {
+    "wait": torch.int32,
+    "promised": torch.int32,
+    "acc_rank": torch.int32,
+    "acc_rm": torch.bool,
+    "acc_add": torch.bool,
+    "prop_rm": torch.bool,
+    "prop_add": torch.bool,
+    "prop_ready": torch.bool,
+    "decided": torch.bool,
+    "join_phase": torch.int32,
+    "join_seed": torch.int32,
+    "join_tries": torch.int32,
+    "join_digest": torch.int32,
+    "join_ok": torch.bool,
+}
+
+
+def _fields(obj) -> dict:
+    if isinstance(obj, dict):
+        return obj
+    return {name: getattr(obj, name) for name in _FALLBACK_LEAVES}
+
+
+def rapid_state_from_numpy(d: dict, device="cuda") -> RapidState:
+    """Build this package's Rapid state from a dict of numpy arrays
+    (``fb`` and ``trace`` objects or dicts of their fields, when present;
+    ``live_mask`` when present)."""
+    fields = {name: _to_device(d, name, dt, device) for name, dt in _RAPID_LEAVES.items()}
+    fb = d.get("fb")
+    if fb is not None:
+        fb = _fields(fb)
+        fb = FallbackState(**{
+            name: _to_device(fb, name, dt, device) for name, dt in _FALLBACK_LEAVES.items()
+        })
+    ring = d.get("trace")
+    live = d.get("live_mask")
+    return RapidState(
+        rng=_rng(d), t_host=_t_host(d), **fields,
+        trace=None if ring is None else ring_from_fields(ring, device=device),
+        fb=fb,
+        live_mask=None if live is None else _to_device(d, "live_mask", torch.bool, device),
+    )
+
+
+def rapid_state_to_numpy(state: RapidState) -> dict:
+    """The inverse of :func:`rapid_state_from_numpy`: copies in the
+    reference's dtypes, ``fb`` and ``trace`` as dicts of their fields and
+    ``live_mask`` only when present."""
+    out = {name: np.array(getattr(state, name).cpu()) for name in _RAPID_LEAVES}
+    if state.fb is not None:
+        out["fb"] = {name: np.array(getattr(state.fb, name).cpu()) for name in _FALLBACK_LEAVES}
+    if state.trace is not None:
+        out["trace"] = ring_to_numpy(state.trace)
+    if state.live_mask is not None:
+        out["live_mask"] = np.array(state.live_mask.cpu())
     out["rng"] = np.asarray(state.rng, dtype=np.uint32).copy()
     return out

@@ -20,13 +20,14 @@ A stacked :class:`~.schedule.FaultSchedule` resolves each universe at its
 own global tick on the host; the stacked plan is built once per distinct
 combination of segments and flap phases.
 
-Population statistics over the batch live in obs/ensemble.py.
+Population statistics over the batch live in obs/ensemble.py; the Rapid
+twin (sim/rapid.py) steps through the same runner pieces (``_Inputs``
+with the join lane, ``_step``).
 
 Not ported yet (ROADMAP Queue A; the runners raise
 ``NotImplementedError``): flight-recorder rings and elastic states inside
-an ensemble (A9/A10 follow-ups), zone worlds and tracked user gossip in
-ensembles, the Rapid twin (A12), the fleet (A13), chaos / sweep (A14) and
-the universe mesh (A15).
+an ensemble (A13/A14), zone worlds and tracked user gossip in ensembles,
+the fleet (A13), chaos / sweep (A14) and the universe mesh (A15).
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
 from scalecube_cluster_tpu_torch.sim.knobs import Knobs, make_knobs
 from scalecube_cluster_tpu_torch.sim.params import SimParams
 from scalecube_cluster_tpu_torch.sim.schedule import (
+    EV_JOIN,
     EV_KILL,
     EV_RESTART,
     FaultSchedule,
@@ -283,9 +285,10 @@ def _stacked_hosts(schedule: FaultSchedule) -> list:
 class _Inputs:
     """Each tick's stacked plan and events, and the scheduled runners'
     per-universe trace gauges (``plan_dirty``, ``kills_fired``,
-    ``restarts_fired``)."""
+    ``restarts_fired``; ``joins_fired`` with ``joins``, which fires the
+    join lane as a third event mask)."""
 
-    def __init__(self, plans, b: int, n: int, device, collect: bool):
+    def __init__(self, plans, b: int, n: int, device, collect: bool, joins: bool = False):
         if isinstance(plans, FaultSchedule):
             self.scheduled = True
             lead = plans.starts.shape[0] if plans.starts.dim() == 2 else None
@@ -306,7 +309,9 @@ class _Inputs:
             )
         self.plans, self.b, self.n, self.device = plans, b, n, device
         self.record = self.scheduled and collect
-        self.dirty, self.kills, self.restarts = [], [], []
+        self.kinds = (EV_KILL, EV_RESTART, EV_JOIN) if joins else (EV_KILL, EV_RESTART)
+        self.dirty = []
+        self.fired = [[] for _ in self.kinds]
         self._plan_key = None
         self._plan = None
 
@@ -335,33 +340,29 @@ class _Inputs:
         masks = None
         for i, (h, t) in enumerate(zip(hosts, ts)):
             fire = h.ev_tick == int(t)
-            if not (fire & np.isin(h.ev_kind, (EV_KILL, EV_RESTART))).any():
+            if not (fire & np.isin(h.ev_kind, self.kinds)).any():
                 continue
             if masks is None:
-                masks = np.zeros((2, self.b, self.n), bool)
-            masks[:, i] = host_event_masks(h, int(t), self.n, (EV_KILL, EV_RESTART))
+                masks = np.zeros((len(self.kinds), self.b, self.n), bool)
+            masks[:, i] = host_event_masks(h, int(t), self.n, self.kinds)
         if self.record:
             self.dirty.append([
                 bool(h.seg_dirty[k]) or fl for h, k, fl in zip(hosts, ks, flaps)
             ])
-            self.kills.append([0] * self.b if masks is None else masks[0].sum(axis=1).tolist())
-            self.restarts.append(
-                [0] * self.b if masks is None else masks[1].sum(axis=1).tolist()
-            )
+            for j, rows in enumerate(self.fired):
+                rows.append([0] * self.b if masks is None else masks[j].sum(axis=1).tolist())
         if masks is None:
             return self._plan, None
-        ev = torch.from_numpy(masks).to(self.device)
-        return self._plan, (ev[0], ev[1])
+        return self._plan, tuple(torch.from_numpy(masks).to(self.device))
 
     def finish(self, traces: dict) -> dict:
         if not self.record:
             return traces
         traces = dict(traces)
         dev = self.device
-        for key, rows, dtype in (("plan_dirty", self.dirty, torch.bool),
-                                 ("kills_fired", self.kills, torch.int32),
-                                 ("restarts_fired", self.restarts, torch.int32)):
-            traces[key] = torch.tensor(np.asarray(rows).T.copy(), dtype=dtype, device=dev)
+        traces["plan_dirty"] = torch.tensor(np.asarray(self.dirty).T.copy(), device=dev)
+        for key, rows in zip(("kills_fired", "restarts_fired", "joins_fired"), self.fired):
+            traces[key] = torch.tensor(np.asarray(rows).T.copy(), dtype=torch.int32, device=dev)
         return traces
 
 
@@ -378,6 +379,8 @@ def _select(tree, idx: torch.Tensor, idx_np: np.ndarray):
             fields[f.name] = v.index_select(0, idx)
         elif isinstance(v, np.ndarray):
             fields[f.name] = v[idx_np].copy()
+        elif _is_record(v):
+            fields[f.name] = _select(v, idx, idx_np)
         else:
             fields[f.name] = v
     return type(tree)(**fields)
@@ -396,6 +399,8 @@ def _merge(full, part, idx: torch.Tensor, idx_np: np.ndarray):
             out = v.copy()
             out[idx_np] = w
             fields[f.name] = out
+        elif _is_record(v):
+            fields[f.name] = _merge(v, w, idx, idx_np)
         else:
             fields[f.name] = v
     return type(full)(**fields)

@@ -12,7 +12,9 @@ A ``[1, 1]`` matrix is the compact "same setting on every link" layout
 overlays a zone-level topology that every edge lookup composes with. The FD
 probe is the only deadline-bearing exchange; it draws ONE in-time sample per
 probe path from the Erlang tail of the summed leg delays
-(:func:`round_trip_in_time_from`).
+(:func:`round_trip_in_time_from`). :func:`link_pass_where` and
+:func:`link_pass_at` give :func:`link_pass`'s bits at the cells that send
+only (Rapid's broadcasts, sim/rapid.py).
 
 Float parity with the reference: XLA:CPU evaluates ``exp`` with the Cephes
 polynomial in fused multiply-adds, contracts ``a * b + c`` into one
@@ -27,6 +29,7 @@ same bits.
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 
 import torch
@@ -270,6 +273,99 @@ def link_pass(key, plan: FaultPlan, src, dst) -> torch.Tensor:
     tensors): one uniform per edge from ``key``, then :func:`link_pass_from`."""
     shape = torch.broadcast_shapes(src.shape, dst.shape)
     return link_pass_from(prng.uniform(key, tuple(shape), src.device), plan, src, dst)
+
+
+def _at_cells(x: torch.Tensor, shape, cell: torch.Tensor, universe) -> torch.Tensor:
+    """``broadcast_to(x, shape).reshape(-1)[cell]`` without the broadcast;
+    with ``universe``, ``x`` broadcasts to ``[B or 1, *shape]`` and each
+    cell is read in its universe."""
+    lead = 0 if universe is None else 1
+    x = x.reshape((1,) * (lead + len(shape) - x.dim()) + tuple(x.shape))
+    lin = torch.zeros_like(cell)
+    rem = cell
+    stride = 1
+    for dim in reversed(range(len(shape))):
+        coord = rem % shape[dim]
+        rem = rem // shape[dim]
+        if x.shape[lead + dim] != 1:
+            lin = lin + coord * stride
+            stride *= x.shape[lead + dim]
+    if lead and x.shape[0] != 1:
+        lin = lin + universe * stride
+    return x.contiguous().reshape(-1)[lin]
+
+
+def _stacked_cells(mat: torch.Tensor, universe, src, dst) -> torch.Tensor:
+    """``mat[universe, src, dst]`` on a stacked ``[B, M, M]`` plan matrix
+    (``[B, 1, 1]`` compact)."""
+    m = mat.shape[1]
+    if m == 1:
+        return mat.reshape(-1)[universe]
+    s = torch.clamp_max(src, m - 1).long()
+    d = torch.clamp_max(dst, m - 1).long()
+    return mat.reshape(-1)[(universe * m + s) * m + d]
+
+
+def link_pass_at(key, plan: FaultPlan, counters: torch.Tensor, src, dst,
+                 universe: torch.Tensor | None = None) -> torch.Tensor:
+    """:func:`link_pass` at chosen cells of a draw: ``counters`` are the
+    cells' flat indices in the draw's shape (int64), ``src``/``dst`` their
+    endpoints (shaped like ``counters``). With a :class:`prng.KeyBatch`,
+    ``universe`` gives each cell's universe, whose key and (stacked) plan
+    it takes."""
+    u = prng.uniform_at(key, counters, universe)
+    if plan.block.dim() == 3:
+        return ~edge_blocked_at(plan, src, dst, universe) & (
+            u >= _stacked_cells(plan.loss, universe, src, dst)
+        )
+    return link_pass_from(u, plan, src, dst)
+
+
+def edge_blocked_at(plan: FaultPlan, src, dst, universe=None) -> torch.Tensor:
+    """:func:`edge_blocked` at cells whose universe is ``universe`` (the
+    stacked plan's matrix of each; unused on a plan that is not stacked)."""
+    if plan.block.dim() == 3:
+        return _stacked_cells(plan.block, universe, src, dst)
+    return edge_blocked(plan, src, dst)
+
+
+def link_pass_where(key, plan: FaultPlan, src, dst, send: torch.Tensor):
+    """``link_pass(key, plan, src, dst) & send``, drawing only the cells
+    where ``send`` is True. Threefry's partitionable counters give a cell
+    the bits of its flat index whatever else is drawn, so every sent cell
+    gets the full draw's bits; the other cells are False. A
+    :class:`prng.KeyBatch` takes ``send`` with a leading universe axis and
+    ``src``/``dst`` with one of B or 1.
+
+    Returns ``(passed, n_sent)``: finding the sent cells is the one host
+    read, and ``n_sent`` (a Python int) is what it read. When at least half
+    the cells send, the whole shape is drawn instead of gathered (fewer
+    bytes). A universe's draw is limited to 2**32 cells (one counter word):
+    Rapid's alarm broadcast, n·n·k cells, stays below it for n < 23,170 at
+    k = 8."""
+    batched = isinstance(key, prng.KeyBatch)
+    shape = tuple(send.shape[1:]) if batched else tuple(send.shape)
+    numel = math.prod(shape)
+    if numel >= 1 << 32:
+        raise ValueError("draws of 2**32 elements or more need a high counter word")
+    lead = send.shape[0] if batched else 1
+    idx = send.reshape(lead, numel).nonzero()
+    n_sent = int(idx.shape[0])
+    if n_sent == 0:
+        return torch.zeros_like(send), 0
+    if 2 * n_sent >= lead * numel:
+        del idx
+        u = prng.uniform(key, shape, send.device)
+        return link_pass_from(u, plan, src, dst) & send, n_sent
+    universe = idx[:, 0] if batched else None
+    cell = idx[:, 1]
+    ok = link_pass_at(
+        key, plan, cell, _at_cells(src, shape, cell, universe),
+        _at_cells(dst, shape, cell, universe), universe,
+    )
+    out = torch.zeros((lead * numel,), dtype=torch.bool, device=send.device)
+    out[idx[:, 0] * numel + cell] = ok
+    return out.view(send.shape), n_sent
 
 
 def link_delay_within_tick(key, plan: FaultPlan, src, dst, tick_ms) -> torch.Tensor:

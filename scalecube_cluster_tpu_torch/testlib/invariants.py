@@ -1,9 +1,11 @@
-"""SWIM invariant certifiers: replay a scheduled run's traces and certify
-protocol properties per tick (copy of the SWIM part of
-scalecube_cluster_tpu/testlib/invariants.py: ``REQUIRED_KEYS``,
-:func:`heal_bound`, :func:`certify_traces`, :func:`certify_heal` and the
-batched :func:`certify_population` that obs/ensemble.py reports; the
-Rapid, zone and promotion certifiers wait for ROADMAP A12-A14).
+"""Invariant certifiers: replay a scheduled run's traces and certify
+protocol properties per tick (copy of scalecube_cluster_tpu/testlib/
+invariants.py: the SWIM part, ``REQUIRED_KEYS``, :func:`heal_bound`,
+:func:`certify_traces`, :func:`certify_heal` and the batched
+:func:`certify_population` that obs/ensemble.py reports, and the Rapid
+part, :func:`r5_bound`, :func:`certify_rapid_traces` and
+:func:`certify_rapid_population`; the zone and promotion certifiers wait
+for ROADMAP A14).
 
 C1  Counter conservation — ``link_attempts == link_delivered +
     fault_blocked + fault_lost`` at every tick.
@@ -21,6 +23,23 @@ C6  Suspicion implies a prior missed probe — the first tick with
 C7  Convergence within a computed bound after heal — once the timeline goes
     permanently clean, the cluster re-converges within :func:`heal_bound`
     ticks (the caller passes the engine's end-of-run convergence).
+
+The Rapid engine (sim/rapid.py) is certified from its per-member view
+traces (``view_id`` / ``view_digest`` / ``view_size`` / ``alive_mask``):
+
+R1  View agreement — live members holding the same view id hold the same
+    view digest.
+R2  View monotonicity — a member's view id never decreases while it stays
+    alive.
+R3  No split-brain — for any view id, at most one digest group is a
+    majority of the view size it claims (checked before R1).
+R4  Stability — no view change before probes were missed on at least
+    ``low_watermark`` distinct ticks.
+R5  Liveness under the fallback — every detected cut commits a view change
+    within :func:`r5_bound` ticks of the later of the cut and the last
+    disturbance, and the first view change has a detected cut at or before
+    it; raised only for ``fallback=True`` runs (``views_parked`` is counted
+    for every run).
 
 Violations raise :class:`InvariantViolation` with the failing tick and
 values. Numpy only: callers read the traces back first.
@@ -283,6 +302,228 @@ def certify_population(
             if final_convergence is not None:
                 certify_heal(params, summary, float(final_convergence[b]))
             summaries[b] = summary
+        except InvariantViolation as e:
+            ok[b] = False
+            violations[b] = {"invariant": e.invariant, "error": str(e)}
+    return {"ok": ok, "violations": violations, "summaries": summaries}
+
+
+#: Trace keys a certified Rapid trajectory must carry (sim/rapid.py with
+#: collect=True; the per-member view traces are the consistency plane).
+RAPID_REQUIRED_KEYS = (
+    "view_id",
+    "view_digest",
+    "view_size",
+    "alive_mask",
+    "view_changes",
+    "alarms_raised",
+    "cut_detected",
+    "pings",
+    "acks",
+)
+
+#: Keys whose trace leaves carry a per-member axis ([T, N], not [T]).
+_RAPID_MEMBER_KEYS = ("view_id", "view_digest", "view_size", "alive_mask")
+
+
+def _get_rapid(traces: dict, key: str) -> np.ndarray:
+    if key not in traces:
+        raise InvariantViolation(
+            "schema", f"certified Rapid traces must carry {key!r} "
+            f"(collect=True run of sim/rapid.py); got keys {sorted(traces)}"
+        )
+    arr = np.asarray(traces[key])
+    if key in _RAPID_MEMBER_KEYS:
+        if arr.ndim != 2:
+            raise InvariantViolation(
+                "schema",
+                f"{key!r} must be a [T, N] per-member trace; got {arr.shape}",
+            )
+        return arr
+    return arr.reshape(-1)
+
+
+def r5_bound(params) -> int:
+    """Ticks within which a detected cut must commit a view change under
+    the classic fallback (R5). Closed form over the protocol's cadences:
+    the locked vote sits ``fallback_delay_ticks`` before arming, the
+    rotating coordinator needs at most n+2 three-tick rounds to land on an
+    armed live member of the right configuration (n candidates, plus the
+    partial round in flight, plus one round of promise-state settling),
+    laggards adopt within one sync period, and the constant cushion absorbs
+    probe/alarm phase at the detection edge."""
+    return (
+        int(params.fallback_delay_ticks)
+        + 3 * (int(params.n) + 2)
+        + int(params.sync_period_ticks)
+        + 20
+    )
+
+
+def certify_rapid_traces(params, traces: dict, fallback: bool = False) -> dict:
+    """Certify one Rapid trajectory's traces (R1-R5). ``params`` is the
+    run's :class:`~scalecube_cluster_tpu.sim.rapid.RapidParams` (the
+    L-watermark parameterizes R4, the fallback cadences R5). Returns a
+    summary dict on success; raises :class:`InvariantViolation` at the
+    first breach.
+
+    Check order is R3, R1, R2, R4, R5 — see the module docstring for why
+    split-brain outranks plain disagreement. ``fallback=True`` (a run with
+    the classic fallback attached) arms the R5 liveness raises; the
+    ``views_parked`` summary field is computed either way.
+    """
+    vid = _get_rapid(traces, "view_id")
+    dig = _get_rapid(traces, "view_digest")
+    vsz = _get_rapid(traces, "view_size")
+    alv = _get_rapid(traces, "alive_mask").astype(bool)
+    vc = _get_rapid(traces, "view_changes")
+    pings = _get_rapid(traces, "pings")
+    acks = _get_rapid(traces, "acks")
+    ticks = vid.shape[0]
+    if ticks == 0:
+        raise InvariantViolation("schema", "empty trace")
+
+    # R3 no split-brain, then R1 agreement — per tick, per view id, among
+    # live members only (a dead process's frozen view claims nothing).
+    for t in range(ticks):
+        live = np.flatnonzero(alv[t])
+        if live.size == 0:
+            continue
+        for view in np.unique(vid[t, live]):
+            grp = live[vid[t, live] == view]
+            digests, first, counts = np.unique(
+                dig[t, grp], return_index=True, return_counts=True
+            )
+            claimed = vsz[t, grp][first]  # one claimed size per digest group
+            majorities = int((2 * counts > claimed).sum())
+            if majorities > 1:
+                raise InvariantViolation(
+                    "R3-split-brain",
+                    f"tick {t}: view id {int(view)} has {majorities} "
+                    f"majority digest groups (sizes {counts.tolist()} of "
+                    f"claimed views {claimed.tolist()})",
+                )
+            if digests.size > 1:
+                raise InvariantViolation(
+                    "R1-agreement",
+                    f"tick {t}: {grp.size} live members share view id "
+                    f"{int(view)} but split over {digests.size} digests "
+                    f"(counts {counts.tolist()})",
+                )
+
+    # R2 per-member view-id monotonicity while continuously alive.
+    if ticks > 1:
+        fell = (vid[1:] < vid[:-1]) & alv[1:] & alv[:-1]
+        if fell.any():
+            t, m = map(int, np.argwhere(fell)[0])
+            raise InvariantViolation(
+                "R2-monotone",
+                f"tick {t + 1}: member {m} view id dropped "
+                f"{int(vid[t, m])} -> {int(vid[t + 1, m])} without a "
+                "restart (member alive across both ticks)",
+            )
+
+    # R4 stability: the first view change needs >= L prior missed-probe
+    # ticks — the alarm counter cannot cross the L-watermark any faster.
+    low = int(params.low_watermark)
+    vc_ticks = np.flatnonzero(vc > 0)
+    first_vc = int(vc_ticks[0]) if vc_ticks.size else -1
+    if vc_ticks.size:
+        miss_ticks = int((pings[: first_vc + 1] > acks[: first_vc + 1]).sum())
+        if miss_ticks < low:
+            raise InvariantViolation(
+                "R4-stability",
+                f"tick {first_vc}: view changed after only {miss_ticks} "
+                f"missed-probe ticks (< L watermark {low}) — a flap "
+                "shorter than L must never surface as a view change",
+            )
+
+    # R5 liveness: every detected cut must commit within the closed-form
+    # bound — counted for every run (``views_parked``), raised only for
+    # fallback runs (the bare fast path may park by design).
+    cut = _get_rapid(traces, "cut_detected")
+    cut_ticks = np.flatnonzero(cut > 0)
+    bound = r5_bound(params) if hasattr(params, "fallback_delay_ticks") else 0
+    disturb = np.zeros(ticks, bool)
+    for key in ("plan_dirty", "kills_fired", "restarts_fired", "joins_fired"):
+        if key in traces:
+            disturb |= np.asarray(traces[key]).reshape(-1)[:ticks].astype(bool)
+    views_parked = 0
+    first_parked = -1
+    for t in cut_ticks:
+        later = np.flatnonzero(disturb[int(t):]) + int(t)
+        anchor = int(later[-1]) if later.size else int(t)
+        deadline = anchor + bound
+        if deadline >= ticks:
+            continue  # trace too short to judge this cut
+        # Window includes the cut tick itself: the fast path locks a vote
+        # and commits it in the same round when the quorum is already there.
+        if not (vc[int(t) : deadline + 1] > 0).any():
+            views_parked += 1
+            if first_parked < 0:
+                first_parked = int(t)
+    if fallback and views_parked:
+        raise InvariantViolation(
+            "R5-parked",
+            f"tick {first_parked}: cut detected but no view change within "
+            f"{bound} ticks of the last disturbance — {views_parked} parked "
+            "cut(s) under the classic fallback, which guarantees commit",
+        )
+    if fallback and first_vc >= 0:
+        if not cut_ticks.size or int(cut_ticks[0]) > first_vc:
+            raise InvariantViolation(
+                "R5-commit-cause",
+                f"tick {first_vc}: view change committed with no detected "
+                f"cut at or before it (first cut: "
+                f"{int(cut_ticks[0]) if cut_ticks.size else None})",
+            )
+
+    summary = {
+        "ticks": int(ticks),
+        "view_changes": int(vc.sum()),
+        "alarms_raised": int(_get_rapid(traces, "alarms_raised").sum()),
+        "cut_detected": int(cut.sum()),
+        "max_view_id": int(vid[-1].max()),
+        "first_view_change_tick": first_vc,
+        "views_parked": int(views_parked),
+    }
+    for key in ("fallback_rounds", "fallback_commits",
+                "join_requests", "join_confirms"):
+        if key in traces:
+            summary[key] = int(np.asarray(traces[key]).sum())
+    return summary
+
+
+def certify_rapid_population(params, traces: dict, fallback: bool = False) -> dict:
+    """Batched R1-R5 certifier over an ensemble Rapid run: every trace leaf
+    carries a leading universe axis (scalars ``[B, T]``, member traces
+    ``[B, T, N]``); universe b is certified exactly as a single run. Never
+    raises — returns the same ``{"ok", "violations", "summaries"}``
+    structure as :func:`certify_population`."""
+    missing = [k for k in RAPID_REQUIRED_KEYS if k not in traces]
+    if missing:
+        raise InvariantViolation(
+            "schema", f"population traces must carry {missing!r}"
+        )
+    lead = np.asarray(traces["view_changes"])
+    if lead.ndim != 2:
+        raise InvariantViolation(
+            "schema",
+            f"population traces need a [B, T] universe axis; got {lead.shape}",
+        )
+    b_count = lead.shape[0]
+    ok = np.ones(b_count, bool)
+    violations: list = [None] * b_count
+    summaries: list = [None] * b_count
+    for b in range(b_count):
+        tb = {
+            k: np.asarray(traces[k])[b]
+            for k in RAPID_REQUIRED_KEYS + tuple(
+                k for k in _OPTIONAL_EVENT_KEYS if k in traces
+            )
+        }
+        try:
+            summaries[b] = certify_rapid_traces(params, tb, fallback=fallback)
         except InvariantViolation as e:
             ok[b] = False
             violations[b] = {"invariant": e.invariant, "error": str(e)}

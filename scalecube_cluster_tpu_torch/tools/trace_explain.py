@@ -14,8 +14,11 @@ probe round") per event: every link must point strictly backwards in the
 ring, keep the subject fixed, keep the failure-detector actor fixed across
 the probe episode, be of the kind the protocol allows at that link, and be
 tick-ordered. The chain grammar also holds the Rapid links (fallback
-rounds, the join handshake); the check over those families
-(``check_rapid_chains``) waits for the port's Rapid engine.
+rounds, the join handshake), which ``check_rapid_chains`` walks for every
+fallback-committed view change and every join confirm:
+
+    view_commit -> fb_accept -> fb_prepare -> vote   (classic fallback)
+    join_confirm -> join_ack -> join_req             (join handshake)
 """
 
 from __future__ import annotations
@@ -190,4 +193,29 @@ def check_c6(events: list[dict]) -> list[str]:
             f"tick={ev['tick']}): {v}"
             for v in violations
         )
+    return out
+
+
+def check_rapid_chains(events: list[dict]) -> list[str]:
+    """Machine-check the Rapid fallback and join chain families over EVERY
+    fb-committed view change (``view_commit`` with ``cause >= 0``) and every
+    ``join_confirm`` in the file. Returns the flat violation list (empty ==
+    each one walks back to its originating vote / join request)."""
+    by_pos = {e["i"]: e for e in events}
+    out: list[str] = []
+    for ev in events:
+        if ev["kind"] == TK_VIEW_COMMIT and ev["cause"] >= 0:
+            label = (
+                f"FB_COMMIT(decree src={ev['subject']}, "
+                f"member={ev['actor']}, tick={ev['tick']})"
+            )
+        elif ev["kind"] == TK_JOIN_CONFIRM:
+            label = (
+                f"JOIN_CONFIRM(joiner={ev['subject']}, "
+                f"seed={ev['actor']}, tick={ev['tick']})"
+            )
+        else:
+            continue
+        _, violations = walk_chain(by_pos, ev)
+        out.extend(f"{label}: {v}" for v in violations)
     return out

@@ -51,7 +51,8 @@ def test_sources_exist():
                    "tools/trace_explain.py", "obs/__init__.py", "obs/counters.py",
                    "obs/export.py", "obs/latency.py", "obs/profiling.py",
                    "obs/slo.py", "obs/trace.py", "obs/tracer.py", "obs/ensemble.py",
-                   "sim/ensemble.py", "sim/ensemble_tick.py", "testlib/__init__.py",
+                   "sim/ensemble.py", "sim/ensemble_tick.py", "sim/rapid.py",
+                   "testlib/__init__.py",
                    "testlib/invariants.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
