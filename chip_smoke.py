@@ -160,7 +160,32 @@ Phases, each of which must pass (any failure exits non-zero):
     readmission tick, R1-R5 and the chain walk certified, conservation on
     every tick; ms/tick (quiet against SYNC / vote ticks), peak memory and
     the synchronising calls of a quiet tick;
-27. the kernel table as one JSON line, the card's name and power limit,
+27. serving, card vs CPU (serve/bridge.py through testlib/serving.py's
+    replays): kills, restarts (a duplicate cell, a capacity deferral) and
+    user gossip at n=1024, S=256 through the fused core; wire joins with
+    four parked, ``promote()`` to 2048 rows and more joins; joins aimed at
+    ticks; Rapid at n=64 with the fallback, a kill and a protocol join —
+    every state leaf, trace, export row, live row and counter equal, the
+    kernel launched on every fused-core tick, and each replay with a
+    schedule form equal on the card to its offline FaultSchedule run;
+28. the serving main path: the ``--serve`` session at n=32768, S=512,
+    the fused core, host-boundary write-backs, 5% loss, member 7 killed,
+    a warm-up batch then six timed 48-tick batches of 4 gossip events a
+    tick (capacity 8), collect=False; ms/tick against phase 5's, the
+    bridge's row (events/s, member·rounds/s, batch latency p50/p95/p99),
+    peak memory, synchronising calls a batch, ``sparse_core`` on 288 of
+    288 serving ticks;
+29. elastic serving at width: the ``--grow`` session, 16,384 live rows in
+    32,768 grown by 49,152 wire joins (1,024 a batch) through one
+    checkpoint-based promotion to 65,536, S=1024, the fused core; joins
+    admitted a second, the promotion's wall time, ms/tick before and
+    after it, peak memory, a certified zero of dropped joins;
+30. the wire: ``native/framing.c`` built with ``cc`` and loaded, the
+    ``--load`` harness (32 producers, 8 hostile, churn) against a session
+    on the card at n=1024 (4-tick launches, 50 ms of the event loop for
+    the producers between them) with every conservation verdict true, and
+    a live session's ``serve/metrics`` poll equal to its Prometheus scrape;
+31. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
@@ -592,7 +617,7 @@ def phase_main_path(torch):
         f"{int(tr['msgs_gossip'].sum())}, n_suspected {int(tr['n_suspected'][-1])}, "
         f"live viewers flagging member 7: {flagged}"
     )
-    return launches
+    return launches, row
 
 
 def _flagging_viewers(alive, rec, subject):
@@ -2463,6 +2488,261 @@ def phase_rapid_dense_width(torch):
             "peak_gib": peak_gib, "syncs": syncs, "profile": prof}
 
 
+#: Phase 27's serving replays (testlib/serving.py) and their sizes on the
+#: card: the fused core at n=1024, S=256 (kills, restarts, gossip; wire
+#: joins and a promotion to 2048 rows), Rapid at n=64.
+SERVE_CARD_SIZES = {
+    "kill-restart": {"n": 1024, "s": 256},
+    "gossip": {"n": 1024, "s": 256},
+    "elastic": {"n": 1024, "n_live": 896, "s": 256, "pallas_core": True, "trace_capacity": 0,
+                "capacity": 32},
+    "elastic-ticked": {"n": 1024, "n_live": 896, "s": 256, "pallas_core": True},
+    "rapid": {"n": 64},
+}
+
+
+def phase_serving_card_vs_cpu(torch):
+    """Phase 27: serving replays through a ServeBridge, card vs CPU (every
+    state leaf, trace, export row, live row and counter), and on the card
+    against the offline FaultSchedule run of the same fired events."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.testlib import serving as SV
+
+    launched_total = 0
+    for name, sizes in SERVE_CARD_SIZES.items():
+        sc = SV.scenario(name, **sizes)
+        reset_counts()
+        card = SV.serve_replay(name, "cuda", **sizes)
+        launched = read_counts()["sparse_core"]
+        cpu = SV.serve_replay(name, "cpu", **sizes)
+        _compare_runs(f"[27] {name}", [(card["state"], None)] + [({}, t) for t in card["traces"]],
+                      [(cpu["state"], None)] + [({}, t) for t in cpu["traces"]])
+        if [SV.row_values(r) for r in card["rows"]] != [SV.row_values(r) for r in cpu["rows"]]:
+            fail(f"[27] {name}: export rows differ between card and CPU")
+        if SV.row_values(card["live"]) != SV.row_values(cpu["live"]) or (
+                card["counters"] != cpu["counters"]):
+            fail(f"[27] {name}: live row or counters differ between card and CPU")
+        ticks = sum(len(t["tick"]) for t in card["traces"])
+        expect = ticks if sc.get("pallas_core") else 0
+        if launched != expect:
+            fail(f"[27] {name}: sparse_core launched {launched} times on {ticks} ticks "
+                 f"(expected {expect})")
+        launched_total += launched
+        anchor = "no schedule form (gossip)" if name == "gossip" else "promotion: no twin"
+        if sc["fired"] is not None:
+            off = SV.offline_run(name, "cuda", **sizes)
+            tr = SV.concat_traces(card["traces"])
+            _compare_runs(f"[27] {name} offline", [(off["state"], None)],
+                          [(card["state"], None)])
+            for k in set(off["traces"]) - {"ingest_overflow"}:
+                if not np.array_equal(off["traces"][k], tr[k]):
+                    fail(f"[27] {name}: trace {k} differs from the offline run")
+            anchor = "equals its offline FaultSchedule run"
+        if name == "elastic" and (card["counters"]["promotions"] != 1
+                                  or card["counters"]["n_live"] != 1030):
+            fail(f"[27] elastic: counters {card['counters']}")
+        summary = card["rows"][-1]
+        say(f"[27] {name} ({', '.join(f'{k}={v}' for k, v in sizes.items())}): card == CPU on "
+            f"{len(card['state'])} leaves, {len(card['traces'])} launches, {ticks} ticks, "
+            f"{len(card['rows'])} rows; {summary['events_total']} events served, "
+            f"ingest_overflow {summary['ingest_overflow']}; sparse_core {launched}; {anchor}")
+    return launched_total
+
+
+def phase_serving_main_path(torch, main_row):
+    """Phase 28: the serving main path at width — the --serve session at
+    n=32768, S=512 through the fused core, one warm-up batch then six
+    timed 48-tick batches of the rung's gossip stream."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.bench import serve_gossip_stream, serve_session
+
+    n, s, k, c, batches = 32768, 512, 48, 8, 6
+    ticks = k * batches
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bridge, wall_s = serve_session(n, k, c, batches, slot_budget=s, pallas_core=True,
+                                   in_scan_writeback=False, device="cuda")
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    row = bridge.close()
+    launches = counts["sparse_core"]
+    if launches != ticks + k:
+        fail(f"[28] sparse_core launched {launches} times, expected {ticks} served + {k} warm-up")
+    if row["ticks"] != ticks or row["events_total"] != ticks * (c // 2) or row["events_pending"]:
+        fail(f"[28] session served {row['events_total']} events over {row['ticks']} ticks")
+    state = bridge.state
+    slot_subj, subj_slot = state.slot_subj.cpu().numpy(), state.subj_slot.cpu().numpy()
+    active = np.flatnonzero(slot_subj >= 0)
+    if not np.array_equal(subj_slot[slot_subj[active]], active):
+        fail("[28] slot tables are inconsistent after the session")
+    s7 = int(subj_slot[7])
+    flagged = _flagging_viewers(state.alive, state.slab[:, s7] if s7 >= 0 else state.view_T[7, :], 7)
+    if flagged == 0:
+        fail("[28] no live viewer suspects or convicts the killed member 7")
+    if not bool(state.useen.any()):
+        fail("[28] no member holds the served user gossip")
+    ms = wall_s * 1e3 / ticks
+    g = bridge.batcher.g_slots
+    syncs = _sync_calls(torch, lambda: bridge.run_replay(
+        serve_gossip_stream(n, k, c // 2, g, first_tick=bridge.state.t_host + 1), k))
+    ratio = ms / main_row["ms_per_tick"]
+    say(f"[28] serving main path n={n} S={s}, batch_ticks={k}, capacity={c}, {batches} timed "
+        f"batches: {ms:.3f} ms/tick ({ratio:.4f}x phase 5's {main_row['ms_per_tick']:.3f}), "
+        f"close() row: {row['events_per_sec']:.1f} events/s, "
+        f"{row['member_rounds_per_sec']:.1f} member·rounds/s, batch latency p50 "
+        f"{row['latency_ms_p50']:.3f} / p95 {row['latency_ms_p95']:.3f} / p99 "
+        f"{row['latency_ms_p99']:.3f} ms; peak device memory {peak_gib:.3f} GiB; "
+        f"{syncs} synchronising calls a batch; sparse_core {launches - k} of {ticks} serving "
+        f"ticks (+{k} warm-up); live viewers flagging member 7: {flagged}")
+    return launches, {"ms_per_tick": ms, "ratio": ratio, "peak_gib": peak_gib, "syncs": syncs,
+                      "row": row}
+
+
+def phase_serving_grow(torch):
+    """Phase 29: elastic serving at width — the --grow session from 16,384
+    live rows in 32,768 through one promotion to 65,536, wire joins in
+    bursts of 1,024 a batch, the fused core on every tick."""
+    import statistics
+
+    from scalecube_cluster_tpu_torch.bench import grow_row, grow_session, rung_slot_budget
+    from scalecube_cluster_tpu_torch.sim.sparse import SparseParams, sparse_route
+
+    n0, tiers, burst, k = 16384, 1, 1024, 8
+    n_top = 2 * n0 * 2**tiers
+    s = rung_slot_budget(n_top)
+    if not sparse_route(SparseParams.for_n(n_top, slot_budget=s, pallas_core=True)):
+        fail(f"[29] the kernel's gate refuses S={s} at n={n_top}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    bridge, wall_s, n_joins = grow_session(n0, tiers, burst, batch_ticks=k, capacity=burst,
+                                           slot_budget=s, pallas_core=True,
+                                           in_scan_writeback=False, device="cuda")
+    counts = read_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    led = bridge.batcher.join_ledger()
+    promos = [r for r in bridge.rows if r["kind"] == "promotion"]
+    if led["placed"] != n_joins or led["shed"] or led["deferred"] or len(promos) != tiers:
+        fail(f"[29] ledger {led}, promotions {len(promos)}")
+    t_promo = promos[0]["base_tick"]
+    spans = bridge.spans
+    before, after = [], []
+    for a, b in zip(spans, spans[1:]):
+        if b["base_tick"] == t_promo:
+            continue  # this step promoted first
+        (before if b["base_tick"] < t_promo else after).append((b["t0"] - a["t0"]) * 1e3 / k)
+    row = grow_row(bridge, wall_s, n0, tiers, n_joins)
+    if row["n_live"] != n_top or row["dropped"] != 0:
+        fail(f"[29] n_live {row['n_live']}, dropped {row['dropped']}")
+    if counts["sparse_core"] != row["ticks"]:
+        fail(f"[29] sparse_core launched {counts['sparse_core']} times on {row['ticks']} ticks")
+    ms_before, ms_after = statistics.median(before), statistics.median(after)
+    say(f"[29] elastic serving n0={n0} live in {2 * n0} -> {n_top}, S={s}, bursts of {burst} "
+        f"joins a {k}-tick batch: {row['value']:.1f} joins admitted/s, {row['joins_total']} joins, "
+        f"dropped {row['dropped']}, promotion wall {row['promotion_wall_ms']} ms, "
+        f"{ms_before:.3f} ms/tick before and {ms_after:.3f} after it (medians over batches), "
+        f"{row['batches']} batches / {row['ticks']} ticks in {row['wall_s']} s; peak device "
+        f"memory {peak_gib:.3f} GiB; sparse_core {counts['sparse_core']} of {row['ticks']} ticks")
+    return counts["sparse_core"], {"row": row, "ms_before": ms_before, "ms_after": ms_after,
+                                   "peak_gib": peak_gib}
+
+
+async def _telemetry_poll(torch):
+    """A live session on the card fed over loopback TCP, then one
+    ``serve/metrics`` poll and one Prometheus scrape of it."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch.cluster_api.config import TransportConfig
+    from scalecube_cluster_tpu_torch.serve import ServeBridge
+    from scalecube_cluster_tpu_torch.serve.telemetry import (
+        METRICS_QUALIFIER,
+        MetricsResponder,
+        PrometheusEndpoint,
+    )
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.sparse import SparseParams, init_sparse_full_view
+    from scalecube_cluster_tpu_torch.transport.message import Message
+    from scalecube_cluster_tpu_torch.transport.tcp import TcpTransport
+
+    params = SparseParams.for_n(1024, slot_budget=256, pallas_core=True)
+    bridge = ServeBridge(params, init_sparse_full_view(1024, 256, device="cuda"),
+                         plan=FaultPlan.uniform(loss_percent=5.0, device="cuda"),
+                         batch_ticks=8, capacity=4)
+    server = await TcpTransport.bind(TransportConfig(connect_timeout=1000))
+    client = await TcpTransport.bind(TransportConfig(connect_timeout=1000))
+    responder = MetricsResponder(bridge, server)
+    responder.start()
+    prom = PrometheusEndpoint(bridge)
+    await prom.start()
+    try:
+        live = asyncio.ensure_future(bridge.run_live(server, n_batches=3, settle_s=0.1))
+        await asyncio.sleep(0.05)
+        for node in (3, 4):
+            await client.send(server.address, Message.create(
+                qualifier="serve/event", data={"kind": "kill", "node": node},
+                sender=client.address))
+        await asyncio.wait_for(live, timeout=60)
+        req = Message.create(qualifier=METRICS_QUALIFIER, correlation_id="m1",
+                             sender=client.address)
+        polled = (await client.request_response(server.address, req, timeout=5)).data
+        reader, writer = await asyncio.open_connection("127.0.0.1", prom.port)
+        writer.write(b"GET /metrics HTTP/1.0\r\nHost: x\r\n\r\n")
+        await writer.drain()
+        scraped = (await reader.read()).decode()
+        writer.close()
+    finally:
+        await responder.stop()
+        await prom.stop()
+        await client.stop()
+        await server.stop()
+    return bridge, polled, scraped
+
+
+def phase_serving_wire(torch):
+    """Phase 30: the wire — native framing built and loaded, the --load
+    harness against a session on the card, and the telemetry plane."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch import native
+    from scalecube_cluster_tpu_torch.bench import measure_load
+    from scalecube_cluster_tpu_torch.obs.export import prometheus_text
+
+    _, _, is_native = native.load_framing(build=True)
+    if not is_native:
+        fail("[30] native/framing.c did not build with cc: the wire fell back to Python")
+    reset_counts()
+    k = 4
+    row = measure_load(32, 1024, pallas_core=True, batch_ticks=k, capacity=256, settle_s=0.05,
+                       device="cuda")
+    launches = read_counts()["sparse_core"]
+    if not (row["conservation_ok"] and row["rejected_ok"] and row["bounded_ok"]) or row[
+            "producer_errors"] or row["pending"]:
+        fail(f"[30] load audit failed: {json.dumps(row)}")
+    if launches != row["batches"] * k:
+        fail(f"[30] sparse_core launched {launches} times over {row['batches']} batches")
+    say(f"[30] native framing: {native._so_path().name} loaded; --load 32 1024 on the card "
+        f"({k}-tick launches, capacity 256, 50 ms of the event loop between launches): "
+        f"{row['served']} of {row['pushed']} events served, {row['rejected']} rejected of "
+        f"{row['events_injected_malformed']} malformed, {row['reconnects']} reconnects, "
+        f"{row['backpressure_pauses']} backpressure pauses, peak_pending {row['peak_pending']}, "
+        f"{row['batches']} batches in {row['wall_s']:.2f} s ({row['events_per_sec']:.1f} "
+        f"events/s), latency p50 {row['latency_ms_p50']:.3f} / p99 {row['latency_ms_p99']:.3f} "
+        f"ms, conservation / rejected / bounded all true, producer errors 0; sparse_core "
+        f"{launches}")
+    bridge, polled, scraped = asyncio.run(asyncio.wait_for(_telemetry_poll(torch), timeout=180))
+    body = scraped.split("\r\n\r\n", 1)[-1]
+    if not scraped.startswith("HTTP/1.0 200 OK") or body != prometheus_text([polled]):
+        fail("[30] the Prometheus scrape differs from the serve/metrics poll")
+    if polled["kind"] != "serve_live" or polled["batches"] != 3 or bridge.events_served != 2:
+        fail(f"[30] live row {polled}")
+    if bool(bridge.state.alive[3]) or bool(bridge.state.alive[4]):
+        fail("[30] the wire kills did not land")
+    say(f"[30] telemetry: serve/metrics poll == Prometheus scrape ({len(body.splitlines())} "
+        f"lines), batches {polled['batches']}, latency p95 {polled['latency_ms_p95']:.3f} ms")
+    return row
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None,
                   batched=None):
     entry = {
@@ -2508,7 +2788,7 @@ def main() -> int:
     phase_build()
     core_rows = phase_kernel_vs_plain(torch)
     phase_card_vs_cpu(torch)
-    sparse_launches = phase_main_path(torch)
+    sparse_launches, main_row = phase_main_path(torch)
     dense_rows = phase_dense_kernel_vs_plain(torch)
     phase_dense_card_vs_cpu(torch)
     dense_launches = phase_dense_main_path(torch)
@@ -2530,22 +2810,32 @@ def main() -> int:
     phase_rapid_card_vs_cpu(torch)
     phase_rapid_rung(torch)
     phase_rapid_dense_width(torch)
+    serve_card_launches = phase_serving_card_vs_cpu(torch)
+    serve_launches, _ = phase_serving_main_path(torch, main_row)
+    grow_launches, _ = phase_serving_grow(torch)
+    phase_serving_wire(torch)
 
     kernels = {
         "kernels": [
             _kernel_entry(
                 "sparse_core", "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
                 "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
-                sparse_launches + sched_sparse_launches + elastic_launches + ens_launches,
+                sparse_launches + sched_sparse_launches + elastic_launches + ens_launches
+                + serve_card_launches + serve_launches + grow_launches,
                 core_rows[(32768, 512)],
                 ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path",
                  "[15] timelines card vs CPU", "[16] scheduled path",
                  "[18] elastic card vs CPU", "[19] elastic path",
                  "[21] batched kernel vs plain and vs single launches",
-                 "[22] ensemble card vs CPU", "[23] sparse ensemble path"],
+                 "[22] ensemble card vs CPU", "[23] sparse ensemble path",
+                 "[27] serving card vs CPU", "[28] serving main path",
+                 "[29] elastic serving path"],
                 {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches,
                  "[19] elastic path": elastic_launches, "[23] sparse ensemble path": ens_launches,
-                 "[22] ensemble card vs CPU (card side)": ens_card_launches},
+                 "[22] ensemble card vs CPU (card side)": ens_card_launches,
+                 "[27] serving card vs CPU (card side)": serve_card_launches,
+                 "[28] serving main path": serve_launches,
+                 "[29] elastic serving path": grow_launches},
                 batched=batched_rows["sparse_core"],
             ),
             _kernel_entry(
@@ -2588,7 +2878,7 @@ def main() -> int:
             ),
         ]
     }
-    say(f"[27] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[31] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

@@ -50,6 +50,18 @@ timed 40-tick chunks, each ending in a fetch from ``member_mask``; the row
 adds the peak device memory and the synchronising CUDA calls a tick of one
 more chunk (:func:`measure_rapid`). ``--profile`` works on it.
 
+Serving (``bench.py::_measure_serve``, ``_measure_grow``, ``_measure_load``):
+``--serve [n]`` (default 4096) replays a user-gossip stream through the
+serving bridge (serve/bridge.py) over the one-kill, 5%-loss trajectory and
+prints the bridge's ``kind="serve"`` row (:func:`measure_serve`);
+``--grow [n0] [tiers]`` (default 64, 2) grows an elastic session through
+checkpoint-based promotions and prints the ``kind="grow"`` row
+(:func:`measure_grow`); ``--load [producers] [n]`` (default 32, 1024) runs
+the wire load harness (serve/load.py) and prints its ``kind="load"`` audit
+row (:func:`measure_load`). Each takes the reference's defaults; the
+measuring functions also take ``pallas_core``, ``slot_budget``,
+``batch_ticks`` and ``capacity`` as keywords.
+
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
 [--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``, or
 ``--tracer-overhead [n] [S]``) prints one JSON line per run of ``CLI_REPS``
@@ -560,6 +572,167 @@ def measure_tracer_overhead(n: int = 4096, slot_budget: int | None = None, chunk
     return row, traced
 
 
+def serve_gossip_stream(n: int, total_ticks: int, per_tick: int, g_slots: int,
+                        first_tick: int = 1) -> list:
+    """The ``--serve`` rung's traffic (bench.py::_measure_serve): ``per_tick``
+    user-gossip events a tick, on members ``(t * per_tick + j) % n`` and
+    payload slots ``(t + j) % g_slots``, for global ticks ``first_tick`` to
+    ``first_tick + total_ticks - 1``."""
+    from scalecube_cluster_tpu_torch.serve import EV_GOSSIP, ServeEvent
+
+    return [
+        ServeEvent(EV_GOSSIP, (t * per_tick + j) % n, arg=(t + j) % g_slots, tick=t)
+        for t in range(first_tick, first_tick + total_ticks)
+        for j in range(per_tick)
+    ]
+
+
+def serve_session(n: int = 4096, batch_ticks: int = 32, capacity: int = 8, n_batches: int = 8,
+                  *, slot_budget: int | None = None, pallas_core: bool = False,
+                  in_scan_writeback: bool = True, device="cuda"):
+    """The ``--serve`` rung's session (bench.py::_measure_serve), not closed:
+    one warm-up batch through a throwaway bridge, then the serving bridge
+    over the bench's one-kill, 5%-loss trajectory replaying
+    :func:`serve_gossip_stream` (``capacity // 2`` events a tick) for
+    ``n_batches`` launches with collect=False. Returns ``(bridge,
+    wall_s)``, the bridge not closed and ``wall_s`` the replay's wall time
+    up to its last verdicts."""
+    from scalecube_cluster_tpu_torch.serve import ServeBridge
+
+    params = SparseParams.for_n(
+        n, slot_budget=slot_budget or rung_slot_budget(n), pallas_core=pallas_core,
+        in_scan_writeback=in_scan_writeback,
+    )
+    plan = FaultPlan.uniform(loss_percent=5.0, device=device)
+
+    def bridge(state):
+        return ServeBridge(params, state, plan=plan, batch_ticks=batch_ticks,
+                           capacity=capacity, collect=False)
+
+    warm = bridge(init_sparse_full_view(n, params.slot_budget, device=device))
+    warm.run_replay([], batch_ticks)
+    del warm
+    session = bridge(kill_sparse(init_sparse_full_view(n, params.slot_budget, device=device), 7))
+    total_ticks = batch_ticks * n_batches
+    events = serve_gossip_stream(n, total_ticks, max(capacity // 2, 1), session.batcher.g_slots)
+    t0 = time.perf_counter()
+    session.run_replay(events, total_ticks)
+    return session, time.perf_counter() - t0
+
+
+def measure_serve(n: int = 4096, batch_ticks: int = 32, capacity: int = 8, n_batches: int = 8,
+                  **kw) -> dict:
+    """The ``--serve [n]`` rung: :func:`serve_session`'s ``kind="serve"``
+    summary row (events/s, member·rounds/s through the serving path and
+    the batch-latency percentiles)."""
+    return serve_session(n, batch_ticks, capacity, n_batches, **kw)[0].close()
+
+
+def grow_session(n0: int = 64, tiers: int = 2, burst: int = 24, *, batch_ticks: int = 8,
+                 capacity: int | None = None, slot_budget: int | None = None,
+                 pallas_core: bool = False, in_scan_writeback: bool = True, device="cuda"):
+    """The ``--grow [n0] [tiers]`` rung's session (bench.py::_measure_grow):
+    ``n0`` live members in a ``2 * n0`` allocation grow to ``2 * n0 *
+    2**tiers`` through ``tiers`` checkpoint-based promotions
+    (``auto_promote``), ``burst`` wire joins (node omitted) pushed before
+    each launch. Returns ``(bridge, wall_s, n_joins)``, the bridge not
+    closed."""
+    from scalecube_cluster_tpu_torch.serve import ServeBridge
+    from scalecube_cluster_tpu_torch.serve.ingest import event_from_obj
+
+    n_alloc0 = 2 * n0
+    n_top = n_alloc0 * (2**tiers)
+    params = SparseParams.for_n(
+        n_alloc0, slot_budget=slot_budget or rung_slot_budget(n_top),
+        pallas_core=pallas_core, in_scan_writeback=in_scan_writeback,
+    )
+    state = init_sparse_full_view(n0, params.slot_budget, n_alloc=n_alloc0, device=device)
+    bridge = ServeBridge(
+        params, state, plan=FaultPlan.uniform(device=device), batch_ticks=batch_ticks,
+        capacity=capacity or max(burst, 8), collect=False, auto_promote=True,
+    )
+    n_joins = n_top - n0
+    t0 = time.perf_counter()
+    sent = 0
+    while sent < n_joins or bridge.batcher.deferred_joins:
+        for _ in range(min(burst, n_joins - sent)):
+            bridge.push(event_from_obj({"kind": "join"}))
+        sent += min(burst, n_joins - sent)
+        bridge.step_batch()
+    return bridge, time.perf_counter() - t0, n_joins
+
+
+def grow_row(bridge, wall_s: float, n0: int, tiers: int, n_joins: int) -> dict:
+    """The reference's ``--grow`` row for a finished :func:`grow_session`,
+    after asserting the admission ledger: every join placed, none shed, one
+    promotion per tier. Closes the bridge."""
+    led = bridge.batcher.assert_join_conservation()
+    assert led["placed"] == n_joins and led["shed"] == 0, led
+    promo_ms = [r["wall_ms"] for r in bridge.rows if r.get("kind") == "promotion"]
+    assert len(promo_ms) == tiers, (len(promo_ms), tiers)
+    summary = bridge.close()
+    return {
+        "metric": "joins_admitted_per_sec",
+        "value": round(n_joins / wall_s, 1),
+        "unit": "joins/s",
+        "n0": n0,
+        "tiers": tiers,
+        "n_top": 2 * n0 * (2**tiers),
+        "n_live": summary["n_live"],
+        "joins_total": n_joins,
+        "dropped": led["shed"] + led["deferred"],
+        "promotions": tiers,
+        "promotion_wall_ms": [round(ms, 1) for ms in promo_ms],
+        "promotion_wall_ms_mean": round(sum(promo_ms) / len(promo_ms), 1),
+        "batches": summary["batches"],
+        "ticks": summary["ticks"],
+        "wall_s": round(wall_s, 2),
+        "engine": "sparse-elastic",
+    }
+
+
+def measure_grow(n0: int = 64, tiers: int = 2, burst: int = 24, **kw) -> dict:
+    """The ``--grow [n0] [tiers]`` rung: joins admitted a second across the
+    promotions, the promotions' wall times, and a certified zero of dropped
+    joins."""
+    bridge, wall_s, n_joins = grow_session(n0, tiers, burst, **kw)
+    return grow_row(bridge, wall_s, n0, tiers, n_joins)
+
+
+def measure_load(producers: int = 32, n_members: int = 1024, *,
+                 slot_budget: int | None = None, pallas_core: bool = False,
+                 batch_ticks: int = 8, capacity: int = 64, settle_s: float = 0.002,
+                 device="cuda") -> dict:
+    """The ``--load [producers] [n]`` rung (bench.py::_measure_load): the
+    seeded multi-producer wire harness (serve/load.py), honest and
+    adversarial loopback-TCP producers with connection churn against one
+    live bounded-queue session. Returns the harness's ``kind="load"`` audit
+    row. The producers share the session's event loop, which a launch
+    holds until its verdicts: ``settle_s`` is the loop's time for them
+    between launches."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch.serve.load import run_load
+
+    res = asyncio.run(
+        run_load(
+            n=n_members,
+            slot_budget=slot_budget or rung_slot_budget(n_members),
+            producers=producers,
+            adversarial=max(producers // 4, 5),
+            events_per_producer=400,
+            batch_ticks=batch_ticks,
+            capacity=capacity,
+            max_pending=4096,
+            churn_every=100,
+            settle_s=settle_s,
+            pallas_core=pallas_core,
+            device=device,
+        )
+    )
+    return res["row"]
+
+
 def measure_persistent_ksweep(
     n: int = 4096, k_max: int = 8, reps: int = 4, slot_budget: int | None = None
 ) -> list[dict]:
@@ -636,6 +809,14 @@ def main(argv) -> int:
                     help="the dense ensemble rung: B universes [of N members, default 1024]")
     ap.add_argument("--rapid", type=int, nargs="?", const=1024, default=None, metavar="N",
                     help="the Rapid engine rung at N members (default 1024)")
+    ap.add_argument("--serve", type=int, nargs="?", const=4096, default=None, metavar="N",
+                    help="the serving-bridge rung at N members (default 4096)")
+    ap.add_argument("--grow", type=int, nargs="*", default=None, metavar="N0 TIERS",
+                    help="the elastic serving rung: N0 live members (default 64) grown "
+                    "through TIERS promotions (default 2)")
+    ap.add_argument("--load", type=int, nargs="*", default=None, metavar="PRODUCERS N",
+                    help="the wire load harness: PRODUCERS producers (default 32) against "
+                    "N members (default 1024)")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
@@ -662,6 +843,18 @@ def main(argv) -> int:
             emit("bench_rapid_profile", profile_rapid(args.rapid))
         else:
             emit("bench_rapid", measure_rapid(args.rapid))
+        return 0
+    if args.serve is not None:
+        print(jsonl_line(measure_serve(args.serve)), flush=True)
+        return 0
+    if args.grow is not None:
+        n0, tiers = (args.grow + [64, 2][len(args.grow):])[:2]
+        print(jsonl_line(make_row("grow", measure_grow(n0, tiers), run_metadata(seed=0))),
+              flush=True)
+        return 0
+    if args.load is not None:
+        producers, n = (args.load + [32, 1024][len(args.load):])[:2]
+        print(jsonl_line(measure_load(producers, n)), flush=True)
         return 0
     if args.tracer_overhead is not None:
         emit("bench_tracer", measure_tracer_overhead(args.tracer_overhead, args.slot_budget)[0])

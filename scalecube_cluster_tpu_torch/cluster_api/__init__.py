@@ -6,5 +6,6 @@ from scalecube_cluster_tpu_torch.cluster_api.config import (  # noqa: F401
     FailureDetectorConfig,
     GossipConfig,
     MembershipConfig,
+    TransportConfig,
 )
 from scalecube_cluster_tpu_torch.cluster_api.member import MemberStatus  # noqa: F401

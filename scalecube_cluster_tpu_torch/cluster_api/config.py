@@ -14,14 +14,18 @@ durations are milliseconds:
 | sync_interval               | 30000         | 60000 | 15000 |
 | suspicion_mult              | 5             | 6     | 3     |
 
-The transport bean, the fluent withers and the host-runtime fields (seed
-addresses, metadata, timeouts, aliases) stay with the unported host
-runtime.
+``TransportConfig`` (TransportConfig.java:5-159) is copied whole, with
+its ``with_`` helper, for the serving plane's wire transport
+(transport/tcp.py, serve/load.py). The fluent withers of the other beans
+and the host-runtime fields (seed addresses, metadata, timeouts, aliases)
+stay with the unported host runtime.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Any
 
 
 @dataclass(frozen=True)
@@ -115,3 +119,61 @@ class ClusterConfig:
             gossip_config=GossipConfig.default_local(),
             membership_config=MembershipConfig.default_local(),
         )
+
+
+@dataclass(frozen=True)
+class TransportConfig:
+    """Wire transport settings (TransportConfig.java:5-159)."""
+
+    host: str | None = None
+    port: int = 0  # 0 = ephemeral
+    connect_timeout: int = 3_000
+    max_frame_length: int = 2 * 1024 * 1024
+    #: Dotted path or registered name of the MessageCodec (None = default JSON).
+    message_codec: str | None = None
+    #: Reconnect backoff for redials to a destination whose last dial FAILED
+    #: (the reference evicts broken connections and redials on next send,
+    #: TransportImpl.java:299-322; the backoff bounds the dial storm a dead
+    #: peer would otherwise draw from every FD/gossip period): delay doubles
+    #: from min to max per consecutive failure, with ±``jitter`` fractional
+    #: randomization so a cohort of senders doesn't redial in lockstep.
+    #: A successful connect resets the sequence. min=0 disables backoff.
+    reconnect_backoff_min_ms: int = 50
+    reconnect_backoff_max_ms: int = 2_000
+    reconnect_backoff_jitter: float = 0.2
+    #: Grace window ``stop()`` gives accepted-connection handlers to finish
+    #: dispatching frames already received (a peer that wrote then closed —
+    #: the serving bridge's live ingestion relies on this: shutting the
+    #: listener down must DRAIN in-flight events, not cancel them mid-frame).
+    #: Handlers still running at expiry are cancelled as before; 0 restores
+    #: the old cancel-immediately behavior.
+    stop_drain_ms: int = 250
+    #: Idle/read deadline for ACCEPTED connections (0 = disabled, the
+    #: default: cluster peers legitimately idle between protocol periods).
+    #: When set, an accepted connection that delivers no bytes for this
+    #: long is closed and counted (``accept_idle_timeouts``) — the
+    #: slow-loris guard: a hostile client writing a frame header one byte a
+    #: minute can no longer pin a handler (and its memory) until ``stop()``.
+    #: Serving listeners under untrusted traffic should set this
+    #: (serve/load.py defaults it on for the load harness).
+    accept_idle_timeout_ms: int = 0
+    #: Cap on concurrently ACCEPTED connections (0 = unlimited). Accepts
+    #: over the cap are closed immediately and counted (``accept_shed``) —
+    #: bounded handler/buffer memory under a connection flood, chosen shed
+    #: over OOM.
+    max_accepted_connections: int = 0
+
+    def with_(self, **changes: Any) -> "TransportConfig":
+        return dataclasses.replace(self, **changes)
+
+    @classmethod
+    def default_lan(cls) -> "TransportConfig":
+        return cls()
+
+    @classmethod
+    def default_wan(cls) -> "TransportConfig":
+        return cls(connect_timeout=10_000)
+
+    @classmethod
+    def default_local(cls) -> "TransportConfig":
+        return cls(connect_timeout=1_000)

@@ -153,19 +153,43 @@ def load_events_jsonl(path: str) -> list[dict]:
     return events
 
 
-def write_events_jsonl(path: str, events: list[dict]) -> None:
-    """Deterministic JSONL export of decoded events (the trace explainer's
-    input format; same sorted-key serialization as obs/export.py)."""
-    with open(path, "w") as fh:
-        for ev in events:
-            fh.write(jsonl_line(ev) + "\n")
+# -------------------------------------------------------------- message spans
+# Host-transport request/response spans, keyed by the existing correlation
+# ids (transport/api.py::request_response). Recording is opt-in: the hook in
+# the transport is a no-op until :func:`start_message_spans` arms it, so the
+# serving path pays nothing by default.
+_MESSAGE_SPANS: list[dict] | None = None
 
 
-def load_events_jsonl(path: str) -> list[dict]:
-    with open(path) as fh:
-        events = [json.loads(line) for line in fh if line.strip()]
-    events.sort(key=lambda e: e["i"])
-    return events
+def start_message_spans() -> None:
+    """Arm the transport message-span recorder (idempotent)."""
+    global _MESSAGE_SPANS
+    if _MESSAGE_SPANS is None:
+        _MESSAGE_SPANS = []
+
+
+def stop_message_spans() -> list[dict]:
+    """Disarm the recorder and return everything captured."""
+    global _MESSAGE_SPANS
+    spans, _MESSAGE_SPANS = _MESSAGE_SPANS or [], None
+    return spans
+
+
+def record_message_span(
+    cid: str, qualifier: str, t0: float, t1: float, ok: bool = True
+) -> None:
+    """Called by the transport around each correlation-id-matched exchange.
+    No-op unless armed."""
+    if _MESSAGE_SPANS is not None:
+        _MESSAGE_SPANS.append(
+            {
+                "correlation_id": cid,
+                "qualifier": qualifier,
+                "t0": float(t0),
+                "t1": float(t1),
+                "ok": bool(ok),
+            }
+        )
 
 
 # -------------------------------------------------------------- chrome trace

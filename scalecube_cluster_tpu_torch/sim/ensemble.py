@@ -56,6 +56,7 @@ from scalecube_cluster_tpu_torch.sim.schedule import (
     apply_events_dense,
     host_event_masks,
 )
+from scalecube_cluster_tpu_torch.sim.run import stack_ticks
 from scalecube_cluster_tpu_torch.sim.sparse import (
     SparseParams,
     SparseState,
@@ -434,10 +435,6 @@ def _step(tick_fn, states, plan, events, knobs, collect):
     return states, out_metrics
 
 
-def _stack_traces(per_tick: list) -> dict:
-    return {k: torch.stack([m[k] for m in per_tick], dim=1) for k in per_tick[0]}
-
-
 # ---------------------------------------------------------- dense engine
 def run_ensemble_ticks(params: SimParams, states: SimState, plans, seeds, n_ticks: int,
                        collect: bool = True, knobs: Knobs | None = None):
@@ -462,7 +459,7 @@ def run_ensemble_ticks(params: SimParams, states: SimState, plans, seeds, n_tick
         per_tick.append(metrics)
     if not per_tick:
         return states, {}
-    return states, inputs.finish(_stack_traces(per_tick))
+    return states, inputs.finish(stack_ticks(per_tick, dim=1))
 
 
 def run_ensemble_chunked(params: SimParams, states: SimState, plans, seeds, n_ticks: int,
@@ -507,7 +504,7 @@ def run_ensemble_sparse_ticks(params: SparseParams, states: SparseState, plans,
         per_tick.append(metrics)
     if not per_tick:
         return states, {}
-    return states, inputs.finish(_stack_traces(per_tick))
+    return states, inputs.finish(stack_ticks(per_tick, dim=1))
 
 
 def ensemble_writeback_free(params: SparseParams, states: SparseState) -> SparseState:

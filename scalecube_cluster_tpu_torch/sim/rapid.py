@@ -85,7 +85,6 @@ from scalecube_cluster_tpu_torch.sim.ensemble import (
     _check_states,
     _Inputs,
     _stack_built,
-    _stack_traces,
     _step,
     ensemble_size,
 )
@@ -106,14 +105,14 @@ from scalecube_cluster_tpu_torch.sim.faults import (
     link_pass_where,
 )
 from scalecube_cluster_tpu_torch.sim.knobs import _SUSP_MAX, Knobs
-from scalecube_cluster_tpu_torch.sim.run import check_plan
+from scalecube_cluster_tpu_torch.sim.run import check_plan, stack_ticks
 from scalecube_cluster_tpu_torch.sim.schedule import (
     FaultSchedule,
     host_events_at,
     plan_at,
     plan_dirty_at,
 )
-from scalecube_cluster_tpu_torch.sim.tick import _acct_add, xla_cpu_sum_f32, xla_row_means_f32
+from scalecube_cluster_tpu_torch.sim.tick import _acct_add, xla_cpu_fused_sum_f32, xla_row_means_f32
 
 _I32 = torch.int32
 _M32 = 0xFFFFFFFF
@@ -1164,7 +1163,7 @@ def _tick(params: RapidParams, st: RapidState, plan: FaultPlan, collect: bool,
     # steps as the dense engine takes them (ROADMAP Queue C: inside the
     # fused Rapid tick the host's vector loop may reassociate that sum).
     viewer_conv = xla_row_means_f32((mm3 == alive[:, None, :]) | eye)
-    convergence = xla_cpu_sum_f32(viewer_conv * alive) / torch.clamp_min(n_alive, 1)
+    convergence = xla_cpu_fused_sum_f32(viewer_conv * alive) / torch.clamp_min(n_alive, 1)
     metrics = {
         "tick": tick,
         "convergence": convergence,
@@ -1268,7 +1267,7 @@ def run_rapid_ticks(
     state = _lower(st)
     if not per_tick:
         return state, {}
-    traces = {k: torch.stack([m[k][0] for m in per_tick]) for k in per_tick[0]}
+    traces = {k: v[0] for k, v in stack_ticks(per_tick, dim=1).items()}
     if record:
         for key, vals in gauges.items():
             dtype = torch.bool if key == "plan_dirty" else _I32
@@ -1320,4 +1319,4 @@ def run_ensemble_rapid_ticks(
         per_tick.append(metrics)
     if not per_tick:
         return states, {}
-    return states, inputs.finish(_stack_traces(per_tick))
+    return states, inputs.finish(stack_ticks(per_tick, dim=1))

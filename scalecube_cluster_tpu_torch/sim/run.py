@@ -59,6 +59,12 @@ def scheduled_inputs(schedule: FaultSchedule, t: int, n: int, device, traces=Non
     return plan_at(schedule, t), events
 
 
+def stack_ticks(per_tick: list[dict], dim: int = 0) -> dict:
+    """The runners' traces: each key's per-tick tensors stacked along a new
+    tick axis ``dim`` (1 behind a leading universe axis)."""
+    return {k: torch.stack([m[k] for m in per_tick], dim=dim) for k in per_tick[0]}
+
+
 class ScheduleTraces:
     """The scheduled runners' extra per-tick trace keys, gathered on the
     host and stacked once per run (the zone gauges' per-viewer counts stay
@@ -126,7 +132,7 @@ def run_ticks(
         per_tick.append(metrics)
     if not per_tick:
         return state, {}
-    traces = {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]}
+    traces = stack_ticks(per_tick)
     if extra is not None:
         traces = extra.finish(traces, state.device)
     return state, traces

@@ -122,7 +122,12 @@ from scalecube_cluster_tpu_torch.sim.faults import (
 )
 from scalecube_cluster_tpu_torch.sim.knobs import Knobs, edge_live, suspicion_fill
 from scalecube_cluster_tpu_torch.sim.params import SimParams
-from scalecube_cluster_tpu_torch.sim.run import ScheduleTraces, check_plan, scheduled_inputs
+from scalecube_cluster_tpu_torch.sim.run import (
+    ScheduleTraces,
+    check_plan,
+    scheduled_inputs,
+    stack_ticks,
+)
 from scalecube_cluster_tpu_torch.sim.state import AGE_STALE
 from scalecube_cluster_tpu_torch.sim.topology import ZONE_ROW_BLOCK, zone_pair_counts
 from scalecube_cluster_tpu_torch.sim.tick import _acct_add, _acct_zero, _link_acct
@@ -586,8 +591,10 @@ def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask
         alive=(state.alive & ~kill_mask) | fresh,
         epoch=new_epoch,
         inc_self=torch.where(fresh, 0, state.inc_self),
-        age=torch.where(fresh[:, None], torch.tensor(AGE_STALE, dtype=torch.int8), state.age),
-        susp=torch.where(fresh[:, None], torch.tensor(0, dtype=torch.int16), state.susp),
+        # Python scalars keep the planes' int8 / int16 dtypes and, unlike a
+        # CPU tensor operand, need no host-to-device copy.
+        age=torch.where(fresh[:, None], AGE_STALE, state.age),
+        susp=torch.where(fresh[:, None], 0, state.susp),
         useen=torch.where(fresh[:, None], False, state.useen),
         uptr=torch.where(fresh[:, None], 0, state.uptr),
         uinf_ids=uinf_ids,
@@ -1367,7 +1374,7 @@ def run_sparse_ticks(
         per_tick.append(metrics)
     if not per_tick:
         return state, {}
-    traces = {k: torch.stack([m[k] for m in per_tick]) for k in per_tick[0]}
+    traces = stack_ticks(per_tick)
     if extra is not None:
         traces = extra.finish(traces, state.device)
     return state, traces

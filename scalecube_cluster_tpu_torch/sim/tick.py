@@ -141,6 +141,39 @@ def xla_cpu_sum_f32(x: torch.Tensor) -> torch.Tensor:
     return total
 
 
+#: Lanes of the float32 accumulator XLA:CPU's loop vectorizer gives a
+#: reassociable sum inside a fused tick, and the shortest known trip count
+#: it vectorizes (LLVM's minimum: shorter loops stay scalar).
+XLA_VEC_LANES = 8
+XLA_VEC_MIN_TRIP = 16
+
+
+def xla_cpu_fused_sum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of the 1-D ``x`` as XLA:CPU emits it inside a fused
+    tick that vectorizes the reduction (the reference's Rapid tick): more
+    than :data:`XLA_REDUCE_WINDOW` terms are split into windows first
+    (:func:`xla_cpu_sum_f32`); fewer than :data:`XLA_VEC_MIN_TRIP` are
+    summed in order; in between, one :data:`XLA_VEC_LANES`-lane accumulator
+    adds the vector body (the first ``n // 8 * 8`` terms, 8 at a time), its
+    lanes are reduced as a tree (halves added lane by lane), and the scalar
+    tail is added in order. Held against the reference at n = 12 to 64 over
+    three chaos schedules (tests/test_torch_rapid.py). A leading axis sums
+    each row the same way."""
+    n, lanes = x.shape[-1], XLA_VEC_LANES
+    if n > XLA_REDUCE_WINDOW or n < XLA_VEC_MIN_TRIP:
+        return xla_cpu_sum_f32(x)
+    body = n // lanes * lanes
+    acc = torch.zeros(tuple(x.shape[:-1]) + (lanes,), dtype=x.dtype, device=x.device)
+    for b in range(0, body, lanes):
+        acc = acc + x[..., b : b + lanes]
+    while acc.shape[-1] > 1:
+        half = acc.shape[-1] // 2
+        acc = acc[..., :half] + acc[..., half:]
+    total = acc[..., 0]
+    for i in range(body, n):
+        total = total + x[..., i]
+    return total
+
 def _fd_vectors(params: SimParams, state: SimState, plan, keys, cand, view0, fd_round, collect):
     """One FD round as per-row vectors: ``(tgt, fd_key, fire, msgs, extras)``.
 

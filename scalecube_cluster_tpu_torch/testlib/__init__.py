@@ -1,2 +1,3 @@
 """Test support of the port (twin of scalecube_cluster_tpu/testlib/): the
-SWIM invariant certifiers (``invariants``)."""
+SWIM and Rapid invariant certifiers (``invariants``) and the seeded serving
+replays (``serving``)."""

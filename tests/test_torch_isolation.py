@@ -53,9 +53,16 @@ def test_sources_exist():
                    "obs/slo.py", "obs/trace.py", "obs/tracer.py", "obs/ensemble.py",
                    "sim/ensemble.py", "sim/ensemble_tick.py", "sim/rapid.py",
                    "testlib/__init__.py",
-                   "testlib/invariants.py"):
+                   "testlib/invariants.py", "testlib/serving.py",
+                   "serve/__init__.py", "serve/events.py", "serve/engine.py",
+                   "serve/spec.py", "serve/bridge.py", "serve/ingest.py",
+                   "serve/telemetry.py", "serve/load.py", "transport/__init__.py",
+                   "transport/api.py", "transport/codec.py", "transport/message.py",
+                   "transport/tcp.py", "native/__init__.py", "utils/__init__.py",
+                   "utils/address.py", "utils/ids.py", "utils/streams.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
+    assert (PORT / "native" / "framing.c").is_file()
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: p.relative_to(ROOT).as_posix())

@@ -647,19 +647,23 @@ def test_zone_loss_on_rapid_shapes_matches_in_tick(shape):
     assert int(ttr[sent][tick - 1]) > 0, "the chosen cell's message was not sent"
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "XLA:CPU marks the reference's float32 reductions reassociable and, inside "
-    "the fused Rapid tick, its loop vectorizer splits the live-viewer sum of "
-    "`convergence` into vector lanes whose layout follows n and the host's "
-    "vector unit (at n=20 and 24: one 8-lane accumulator, a tree of lanes, a "
-    "scalar tail); the port sums in order as the dense engine does, so the last "
-    "bit differs where the reciprocal of n is inexact (ROADMAP Queue C)"))
 def test_convergence_sum_at_n24_matches_reference():
-    """The one known difference: ``convergence`` at n=24 under a chaos
-    schedule (every other leaf and metric is equal, held by the scenario
-    tests at the reference's own sizes)."""
+    """``convergence`` at n=24 under a chaos schedule, where XLA:CPU's loop
+    vectorizer reorders the reference's live-viewer sum inside the fused
+    Rapid tick (sim/tick.py::xla_cpu_fused_sum_f32)."""
     rp = rapid_chaos_params(24)
     jleaves, jtr = ref_run("conv24", rp, lambda n: sample_schedule(7, n), 40, seed=7)
     _, ttr = port_run(rp, lambda n: sample_schedule(7, n), 40, seed=7)
     assert np.array_equal(jtr["convergence"].view(np.uint8),
                           ttr["convergence"].numpy().view(np.uint8))
+
+
+@pytest.mark.parametrize("n", [12, 16, 20, 24, 33, 40, 48, 64])
+def test_convergence_sum_order_across_sizes(n):
+    """Every leaf and trace, ``convergence`` included, over three chaos
+    schedules at sizes on every side of the vectorizer's thresholds: in
+    order below 16 terms, one 8-lane accumulator with a tree of lanes and
+    an in-order tail from 16 to 32, windows of 32 above."""
+    rp = rapid_chaos_params(n)
+    for seed in (0, 3, 7):
+        check_pair(f"chaos{n}-{seed}", rp, lambda m: sample_schedule(seed, m), 100, seed=seed)
