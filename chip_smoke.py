@@ -185,7 +185,30 @@ Phases, each of which must pass (any failure exits non-zero):
     on the card at n=1024 (4-tick launches, 50 ms of the event loop for
     the producers between them) with every conservation verdict true, and
     a live session's ``serve/metrics`` poll equal to its Prometheus scrape;
-31. the kernel table as one JSON line, the card's name and power limit,
+31. fleets, card vs CPU (serve/fleet.py through testlib/fleet.py's
+    scenarios): B=4 tenants at n=1024, S=256 on the kernel route with
+    kills, restarts and gossip per tenant, an eviction and a tenant placed
+    into the scrubbed slot at tick 0 (two tick groups); an elastic B=2 pool
+    with wire joins and a promotion to 2048 rows; Rapid at n=64, B=4 —
+    every universe of every pool, trace, export row, counter and placement
+    equal, ``sparse_core`` launched as often as the CPU run calls the core,
+    and each checked tenant equal to its solo replay on the card;
+32. the fleet main path: B=4 tenants × n=32768 × S=512 through the kernel
+    (host write-back, the shared 5% loss plan, member 7 killed in each, 4
+    gossip events a tick per tenant, k=48, C=8, collect=False), a warm-up
+    round then 6 timed rounds interleaved with one solo session over
+    tenant 0's stream: ms/tick, tenant·member·rounds/s, events/s,
+    per-tenant latency p50/p95/p99, ``fleet_vs_solo_ratio``, peak memory,
+    synchronising calls a round, one ``sparse_core`` launch a tick for the
+    four tenants; tenant 0 equal to the solo session on every leaf;
+33. an elastic fleet: B=4 at n_alloc 16,384 with 8,192 live rows each,
+    grown by wire joins; ``auto_promote`` moves tenant 0 to 32,768 rows
+    while its neighbours keep stepping — 0 dropped ticks, 0 dropped joins,
+    the ledger conserved, the promotion's wall time, peak memory;
+34. ``run_fleet_load`` on the card: 4 tenants, one hostile, native
+    framing, phase 30's launch geometry — every victim tenant's events
+    conserved, none shed, the hostile tenant's rejects counted;
+35. the kernel table as one JSON line, the card's name and power limit,
     and the device line last.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
@@ -2743,6 +2766,266 @@ def phase_serving_wire(torch):
     return row
 
 
+#: Phase 31's fleet scenarios (testlib/fleet.py) at the card's sizes: the
+#: kernel route at n=1024, S=256, B=4 (kills, restarts and gossip per
+#: tenant, an eviction, a tenant placed into the scrubbed slot at tick 0),
+#: the elastic pool at B=2 on the kernel route with wire joins and one
+#: promotion to 2048 rows, Rapid at n=64, B=4.
+FLEET_CARD_SIZES = {
+    "kernel": {"n": 1024, "s": 256, "fleet_size": 4},
+    "elastic": {"n": 1024, "s": 256, "pallas_core": True, "in_scan_writeback": False},
+    "rapid": {"n": 64, "fleet_size": 4},
+}
+
+
+def phase_fleet_card_vs_cpu(torch):
+    """Phase 31: fleet sessions, card vs CPU (every universe of every pool,
+    every round's traces, export rows, counters, placements), the kernel
+    launched on the card as often as the CPU run calls the core, and each
+    checked tenant equal to its solo replay on the card."""
+    from scalecube_cluster_tpu_torch.sim import ensemble_tick as ET
+    from scalecube_cluster_tpu_torch.testlib import fleet as FL
+
+    launched_total = 0
+    for name, sizes in FLEET_CARD_SIZES.items():
+        with _RouteCounter(ET, "sparse_core") as route:
+            cpu = FL.fleet_replay(name, "cpu", **sizes)
+        reset_counts()
+        card = FL.fleet_replay(name, "cuda", **sizes)
+        launched = read_counts()["sparse_core"]
+        if card["placement"] != cpu["placement"] or card["ledger"] != cpu["ledger"]:
+            fail(f"[31] {name}: placements or ledgers differ: {card['placement']} vs "
+                 f"{cpu['placement']}")
+        leaves = 0
+        for n, universes in cpu["pools"].items():
+            for b, (x, y) in enumerate(zip(card["pools"][n], universes)):
+                _compare_runs(f"[31] {name} pool {n} universe {b}", [(x, None)], [(y, None)])
+                leaves += len(x)
+        for i, (x, y) in enumerate(zip(card["traces"], cpu["traces"])):
+            _compare_runs(f"[31] {name} round {i}", [({}, t) for t in x], [({}, t) for t in y])
+        if [FL.fleet_row_values(r) for r in card["rows"]] != [FL.fleet_row_values(r)
+                                                               for r in cpu["rows"]]:
+            fail(f"[31] {name}: export rows differ between card and CPU")
+        if card["counters"] != cpu["counters"]:
+            fail(f"[31] {name}: counters differ between card and CPU")
+        if launched != route.calls:
+            fail(f"[31] {name}: sparse_core launched {launched} times on the card, the CPU "
+                 f"run called the core {route.calls} times")
+        if name != "rapid" and launched == 0:
+            fail(f"[31] {name}: the kernel route was not taken")
+        for tid in FL.FLEET_SCENARIOS[name]["solo"]:
+            _compare_runs(f"[31] {name} tenant {tid} vs its solo replay",
+                          [(FL.universe_of(card, tid), None)],
+                          [(FL.solo_replay(name, tid, "cuda", **sizes), None)])
+        launched_total += launched
+        ticks = sum(t[0]["tick"].shape[1] for t in card["traces"])
+        say(f"[31] {name} ({', '.join(f'{k}={v}' for k, v in sizes.items())}): card == CPU on "
+            f"{leaves} leaves over {sum(len(u) for u in cpu['pools'].values())} universes in "
+            f"{len(cpu['pools'])} pool(s), {len(card['traces'])} rounds of {ticks} ticks, "
+            f"{len(card['rows'])} rows, ledger {card['ledger']}, placements "
+            f"{card['placement']}; sparse_core {launched} (the CPU run's core calls "
+            f"{route.calls}); tenants {sorted(FL.FLEET_SCENARIOS[name]['solo'])} equal their "
+            "solo replays on the card")
+    return launched_total
+
+
+def _free_earlier_phases(torch):
+    """Collect the reference cycles earlier phases left (a bridge and its
+    batcher's bound allocator, a fleet and its router), so their device
+    tensors are freed before this phase's peak is read."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def phase_fleet_main_path(torch):
+    """Phase 32: the fleet main path — B=4 tenants × n=32768 × S=512 through
+    the kernel (host write-back, the shared 5% loss plan, member 7 killed in
+    each tenant, 4 gossip events a tick per tenant, k=48, C=8,
+    collect=False): one warm-up round, then 6 timed rounds interleaved with
+    one solo session over tenant 0's stream."""
+    from scalecube_cluster_tpu_torch.bench import (
+        fleet_bridges,
+        fleet_round_events,
+        serve_gossip_stream,
+    )
+
+    b, n, s, k, c, rounds = 4, 32768, 512, 48, 8, 6
+    _free_earlier_phases(torch)
+    fleet, solo = fleet_bridges(b, n, k, c, slot_budget=s, pallas_core=True,
+                                in_scan_writeback=False, kill=7, device="cuda")
+    g = fleet.base_pool.g_slots
+
+    def solo_events(r):
+        return serve_gossip_stream(n, k, c // 2, g, first_tick=r * k + 1)
+
+    fleet.run_replay(fleet_round_events(fleet, 0), k)
+    solo.run_replay(solo_events(0), k)
+    fleet_s, solo_s, launches = [], [], 0
+    for r in range(1, rounds + 1):
+        reset_counts()
+        t0 = time.perf_counter()
+        fleet.run_replay(fleet_round_events(fleet, r), k)
+        fleet_s.append(time.perf_counter() - t0)
+        launches += read_counts()["sparse_core"]
+        t0 = time.perf_counter()
+        solo.run_replay(solo_events(r), k)
+        solo_s.append(time.perf_counter() - t0)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    ticks = rounds * k
+    if launches != ticks:
+        fail(f"[32] sparse_core launched {launches} times over {ticks} fleet ticks "
+             "(expected one a tick for the four tenants)")
+    # Tenant 0 and the solo session took the same events from the same state.
+    st0 = fleet.base_pool.states
+    for f in dataclasses.fields(solo.state):
+        a = getattr(solo.state, f.name)
+        if isinstance(a, torch.Tensor) and not torch.equal(a, getattr(st0, f.name)[0]):
+            fail(f"[32] tenant 0's {f.name} differs from its solo session's")
+    flagged = []
+    for u in range(b):
+        slot = int(st0.subj_slot[u, 7])
+        rec = st0.slab[u, :, slot] if slot >= 0 else st0.view_T[u, 7, :]
+        flagged.append(_flagging_viewers(st0.alive[u], rec, 7))
+    if min(flagged) == 0 or not bool(st0.useen.flatten(1).any(dim=1).all()):
+        fail(f"[32] member 7 flagged by {flagged} live viewers; user gossip held per tenant "
+             f"{st0.useen.flatten(1).any(dim=1).tolist()}")
+    syncs = _sync_calls(torch, lambda: fleet.run_replay(fleet_round_events(fleet, rounds + 1), k))
+    summary = fleet.close()
+    ms = sum(fleet_s) * 1e3 / ticks
+    ratio = b * sum(solo_s) / sum(fleet_s)
+    wall_rate = b * n * ticks / sum(fleet_s)
+    lat = {t: (v["latency_ms_p50"], v["latency_ms_p95"], v["latency_ms_p99"])
+           for t, v in summary["tenants"].items()}
+    ledger = fleet.assert_fleet_conservation()
+    if ledger["placed"] != b or summary["events_pending"]:
+        fail(f"[32] ledger {ledger}, events pending {summary['events_pending']}")
+    say(f"[32] fleet main path B={b} n={n} S={s}, k={k}, C={c}, {rounds} timed rounds "
+        f"({ticks} ticks) interleaved with a solo session: {ms:.3f} ms/tick (rounds "
+        f"{', '.join(f'{x * 1e3 / k:.3f}' for x in fleet_s)}), solo {sum(solo_s) * 1e3 / ticks:.3f} "
+        f"ms/tick; {wall_rate:.1f} tenant·member·rounds/s by wall ({summary['tenant_member_rounds_per_sec']:.1f} "
+        f"by the fleet row), {summary['events_per_sec']:.1f} events/s, fleet_vs_solo_ratio "
+        f"{ratio:.4f}; per-tenant latency p50/p95/p99 ms {lat}; peak device memory "
+        f"{peak_gib:.3f} GiB; {syncs} synchronising calls a round; sparse_core {launches} of "
+        f"{ticks} fleet ticks; tenant 0 == its solo session on every leaf; live viewers "
+        f"flagging member 7 per tenant {flagged}")
+    return launches, {"ms_per_tick": ms, "ratio": ratio, "peak_gib": peak_gib, "syncs": syncs,
+                      "rate": wall_rate, "row": summary}
+
+
+def phase_fleet_promotion(torch):
+    """Phase 33: an elastic fleet of B=4 tenants at n_alloc 16,384 with
+    8,192 live rows each, grown by wire joins; ``auto_promote`` moves
+    tenant 0 to 32,768 rows while its neighbours keep stepping."""
+    from scalecube_cluster_tpu_torch.serve import FleetBridge
+    from scalecube_cluster_tpu_torch.serve.ingest import event_from_obj
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.sparse import SparseParams
+
+    b, n0, s, k, c = 4, 16384, 512, 8, 256
+    live0 = n0 // 2
+    joins = {0: live0 + 1024, 1: 2048, 2: 2048, 3: 2048}
+    params = SparseParams.for_n(n0, slot_budget=s, pallas_core=True, in_scan_writeback=False)
+    _free_earlier_phases(torch)
+    reset_counts()
+    fleet = FleetBridge(params, engine="sparse-elastic", fleet_size=b, batch_ticks=k,
+                        capacity=c, plan=FaultPlan.uniform(loss_percent=5.0, device="cuda"),
+                        collect=False, auto_promote=True, init_kw={"n_live": live0},
+                        device="cuda")
+    for t in range(b):
+        fleet.admit(t)
+    for t, count in joins.items():
+        for _ in range(count):
+            fleet.router.push(event_from_obj({"kind": "join", "tenant": t}))
+    t0 = time.perf_counter()
+    rounds = 0
+    while len(fleet.router) or any(s_.batcher.deferred_joins for s_ in fleet.tenants.values()):
+        fleet.step_fleet()
+        rounds += 1
+        if rounds > 40:
+            fail("[33] the joins did not drain in 40 rounds")
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()["sparse_core"]
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    promos = [r for r in fleet.rows if r["kind"] == "fleet_promotion"]
+    ledger = fleet.assert_fleet_conservation()
+    if len(promos) != 1 or promos[0]["tenant"] != 0 or promos[0]["n_to"] != 2 * n0:
+        fail(f"[33] promotions {promos}")
+    dropped_ticks, live = {}, {}
+    for t, sess in fleet.tenants.items():
+        led = sess.batcher.assert_join_conservation()
+        if led["placed"] != joins[t] or led["shed"] or led["deferred"]:
+            fail(f"[33] tenant {t} join ledger {led}")
+        pool = sess.pool
+        dropped_ticks[t] = pool.base_ticks[sess.slot] - int(pool.states.tick[sess.slot])
+        live[t] = int(pool.states.live_mask[sess.slot].sum())
+        if live[t] != live0 + joins[t]:
+            fail(f"[33] tenant {t} n_live {live[t]}")
+    if any(dropped_ticks.values()) or ledger["pending"] or ledger["placed"] != b:
+        fail(f"[33] dropped ticks {dropped_ticks}, ledger {ledger}")
+    ticks = rounds * k
+    if fleet.tenants[0].ticks_run != ticks or fleet.tenants[1].ticks_run != ticks:
+        fail(f"[33] tenants ran {[s_.ticks_run for s_ in fleet.tenants.values()]} of {ticks} ticks")
+    summary = fleet.close()
+    say(f"[33] elastic fleet B={b} at n_alloc {n0} ({live0} live each), S={s}, k={k}, C={c}: "
+        f"{sum(joins.values())} wire joins over {rounds} rounds ({ticks} ticks) in "
+        f"{wall_s:.2f} s; tenant 0 promoted {n0} -> {2 * n0} at tick "
+        f"{promos[0]['base_tick']} in {promos[0]['wall_ms']:.1f} ms "
+        f"({promos[0]['joins_replayed']} parked joins replayed) while tenants 1-3 kept "
+        f"stepping; n_live {live}; dropped ticks 0, dropped joins 0, ledger {ledger}; pools "
+        f"{summary['pools']}; peak device memory {peak_gib:.3f} GiB; sparse_core {launches} "
+        f"over {ticks} ticks (one a tick per pool and tick group)")
+    return launches, {"wall_s": wall_s, "promotion_ms": promos[0]["wall_ms"],
+                      "peak_gib": peak_gib, "rounds": rounds}
+
+
+def phase_fleet_load(torch):
+    """Phase 34: ``run_fleet_load`` on the card — 4 tenants, one of them
+    hostile (5 hostile producers), native framing, phase 30's launch
+    geometry (4-tick launches, 50 ms of the event loop between them)."""
+    import asyncio
+
+    from scalecube_cluster_tpu_torch import native
+    from scalecube_cluster_tpu_torch.serve.load import run_fleet_load
+
+    _, _, is_native = native.load_framing(build=True)
+    if not is_native:
+        fail("[34] native/framing.c did not build with cc")
+    reset_counts()
+    t0 = time.perf_counter()
+    audit = asyncio.run(asyncio.wait_for(run_fleet_load(
+        n=1024, slot_budget=256, tenants=4, hostile_tenants=1, hostile_producers=5,
+        events_per_producer=200, batch_ticks=4, capacity=64, settle_s=0.05, seed=0,
+        pallas_core=True, device="cuda"), timeout=240))
+    wall = time.perf_counter() - t0
+    launches = read_counts()["sparse_core"]
+    row = audit["row"]
+    led = audit["ledger"]
+    if audit["errors"] or not audit["victims_clean"]:
+        fail(f"[34] errors {audit['errors'][:3]}, victims {audit['tenant_audits']}")
+    if led["requested"] != led["placed"] + led["pending"] + led["deferred"] + led["evicted"]:
+        fail(f"[34] ledger {led}")
+    if row["rejected"] != row["events_injected_malformed"]:
+        fail(f"[34] rejected {row['rejected']} of {row['events_injected_malformed']} malformed")
+    for t in (0, 1, 2):
+        a = audit["tenant_audits"][t]
+        if not a["conservation_ok"] or a["shed"] or a["pending"] or a["served"] != a["pushed"]:
+            fail(f"[34] victim tenant {t}: {a}")
+    if launches != row["launches"] * 4:
+        fail(f"[34] sparse_core launched {launches} times over {row['launches']} launches")
+    victims = {t: (a["pushed"], a["served"]) for t, a in audit["tenant_audits"].items()
+               if not a.get("hostile")}
+    say(f"[34] run_fleet_load on the card (n=1024, 4 tenants, tenant 3 hostile with 5 "
+        f"producers, 4-tick launches, 50 ms of the event loop between them): victims "
+        f"(pushed, served) {victims}, shed 0, pending 0; hostile tenant {audit['tenant_audits'][3]}; "
+        f"rejected {row['rejected']} of {row['events_injected_malformed']} malformed; "
+        f"{row['served']} events served in {row['launches']} launches, {row['wall_s']:.2f} s "
+        f"({wall:.2f} s with set-up); ledger {led}; sparse_core {launches}")
+    return launches, row
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None,
                   batched=None):
     entry = {
@@ -2814,6 +3097,10 @@ def main() -> int:
     serve_launches, _ = phase_serving_main_path(torch, main_row)
     grow_launches, _ = phase_serving_grow(torch)
     phase_serving_wire(torch)
+    fleet_card_launches = phase_fleet_card_vs_cpu(torch)
+    fleet_launches, _ = phase_fleet_main_path(torch)
+    fleet_grow_launches, _ = phase_fleet_promotion(torch)
+    fleet_load_launches, _ = phase_fleet_load(torch)
 
     kernels = {
         "kernels": [
@@ -2821,7 +3108,8 @@ def main() -> int:
                 "sparse_core", "scalecube_cluster_tpu_torch/csrc/sparse_core.cu",
                 "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
                 sparse_launches + sched_sparse_launches + elastic_launches + ens_launches
-                + serve_card_launches + serve_launches + grow_launches,
+                + serve_card_launches + serve_launches + grow_launches + fleet_card_launches
+                + fleet_launches + fleet_grow_launches,
                 core_rows[(32768, 512)],
                 ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path",
                  "[15] timelines card vs CPU", "[16] scheduled path",
@@ -2829,13 +3117,19 @@ def main() -> int:
                  "[21] batched kernel vs plain and vs single launches",
                  "[22] ensemble card vs CPU", "[23] sparse ensemble path",
                  "[27] serving card vs CPU", "[28] serving main path",
-                 "[29] elastic serving path"],
+                 "[29] elastic serving path", "[31] fleet card vs CPU",
+                 "[32] fleet main path", "[33] elastic fleet with promotion",
+                 "[34] fleet load harness"],
                 {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches,
                  "[19] elastic path": elastic_launches, "[23] sparse ensemble path": ens_launches,
                  "[22] ensemble card vs CPU (card side)": ens_card_launches,
                  "[27] serving card vs CPU (card side)": serve_card_launches,
                  "[28] serving main path": serve_launches,
-                 "[29] elastic serving path": grow_launches},
+                 "[29] elastic serving path": grow_launches,
+                 "[31] fleet card vs CPU (card side)": fleet_card_launches,
+                 "[32] fleet main path": fleet_launches,
+                 "[33] elastic fleet with promotion": fleet_grow_launches,
+                 "[34] fleet load harness (not in the total)": fleet_load_launches},
                 batched=batched_rows["sparse_core"],
             ),
             _kernel_entry(
@@ -2878,7 +3172,7 @@ def main() -> int:
             ),
         ]
     }
-    say(f"[31] total {time.perf_counter() - t_start:.1f} s")
+    say(f"[35] total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps(kernels))
     say(card)
     say(json.dumps({

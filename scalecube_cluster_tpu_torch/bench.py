@@ -64,7 +64,8 @@ measuring functions also take ``pallas_core``, ``slot_budget``,
 
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
 [--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``, or
-``--tracer-overhead [n] [S]``) prints one JSON line per run of ``CLI_REPS``
+``--tracer-overhead [n] [S]``, ``--fleet [B] [n]``, ``--telemetry [out] [n]``)
+prints one JSON line per run of ``CLI_REPS``
 timed chunks; ``--profile`` instead prints where a tick's time goes
 (:func:`profile_sparse`, :func:`profile_dense`). ``--engine persistent [n]
 [S] [--k-max K]`` prints one JSON row per k. Every line is a row of
@@ -76,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import math
 import statistics
 import sys
@@ -733,6 +735,119 @@ def measure_load(producers: int = 32, n_members: int = 1024, *,
     return res["row"]
 
 
+def fleet_gossip_stream(tenant: int, n: int, total_ticks: int, per_tick: int, g_slots: int,
+                        first_tick: int = 1) -> list:
+    """:func:`serve_gossip_stream` tagged for ``tenant`` (the ``--fleet``
+    rung's per-tenant traffic, bench.py::_measure_fleet)."""
+    return [dataclasses.replace(ev, tenant=tenant)
+            for ev in serve_gossip_stream(n, total_ticks, per_tick, g_slots, first_tick)]
+
+
+def fleet_bridges(fleet_size: int = 4, n: int = 1024, batch_ticks: int = 16, capacity: int = 8,
+                  *, slot_budget: int | None = None, pallas_core: bool = False,
+                  in_scan_writeback: bool = True, kill: int | None = None, device="cuda"):
+    """A fleet of ``fleet_size`` tenants (tenant b in slot b, its
+    placeholder seed b, member ``kill`` killed in each when given) and a
+    solo session whose state equals tenant 0's, both over one shared 5%
+    loss plan with collect=False. Returns ``(fleet, solo)``."""
+    from scalecube_cluster_tpu_torch.serve import FleetBridge, ServeBridge
+
+    params = SparseParams.for_n(
+        n, slot_budget=slot_budget or rung_slot_budget(n), pallas_core=pallas_core,
+        in_scan_writeback=in_scan_writeback,
+    )
+    plan = FaultPlan.uniform(loss_percent=5.0, device=device)
+
+    def start(seed: int):
+        st = init_sparse_full_view(n, params.slot_budget, seed=seed, device=device)
+        return st if kill is None else kill_sparse(st, kill)
+
+    fleet = FleetBridge(params, engine="sparse", fleet_size=fleet_size, batch_ticks=batch_ticks,
+                        capacity=capacity, plan=plan, collect=False, device=device)
+    for b in range(fleet_size):
+        fleet.admit(b, state=None if kill is None else start(b))
+    solo = ServeBridge(params, start(0), plan=plan, batch_ticks=batch_ticks, capacity=capacity,
+                       collect=False)
+    return fleet, solo
+
+
+def fleet_round_events(fleet, round_i: int) -> list:
+    """Every tenant's gossip events for the fleet's ``round_i``-th launch
+    (``capacity // 2`` a tick, global ticks of that launch)."""
+    pool = fleet.base_pool
+    k, per_tick = pool.batch_ticks, max(pool.capacity // 2, 1)
+    return [ev for b in range(pool.fleet_size)
+            for ev in fleet_gossip_stream(b, pool.n, k, per_tick, pool.g_slots,
+                                          first_tick=round_i * k + 1)]
+
+
+def measure_fleet(fleet_size: int = 4, n: int = 1024, batch_ticks: int = 16, capacity: int = 8,
+                  n_rounds: int = 8, **kw) -> dict:
+    """The ``--fleet [B] [n]`` rung (bench.py::_measure_fleet): warm-up
+    sessions first (the kernel build and the caches), then the fleet's
+    ``n_rounds`` launches and one solo session over tenant 0's stream,
+    each timed to its last verdicts. The row is the fleet's ``kind="fleet"``
+    summary plus ``fleet_wall_s``, ``solo_wall_s``, ``fleet_vs_solo_ratio``
+    (> 1: the fleet beat B sequential solo sessions) and ``n_members``."""
+    total = batch_ticks * n_rounds
+    warm, warm_solo = fleet_bridges(fleet_size, n, batch_ticks, capacity, **kw)
+    warm.run_replay([], batch_ticks)
+    warm_solo.run_replay([], batch_ticks)
+    del warm, warm_solo
+    fleet, solo = fleet_bridges(fleet_size, n, batch_ticks, capacity, **kw)
+    per_tick = max(capacity // 2, 1)
+    g = fleet.base_pool.g_slots
+    events = [ev for b in range(fleet_size)
+              for ev in fleet_gossip_stream(b, n, total, per_tick, g)]
+    t0 = time.perf_counter()
+    fleet.run_replay(events, total)
+    fleet_wall_s = time.perf_counter() - t0
+    row = fleet.close()
+    t0 = time.perf_counter()
+    solo.run_replay(serve_gossip_stream(n, total, per_tick, g), total)
+    solo_wall_s = time.perf_counter() - t0
+    solo.close()
+    row["fleet_wall_s"] = round(fleet_wall_s, 4)
+    row["solo_wall_s"] = round(solo_wall_s, 4)
+    row["fleet_vs_solo_ratio"] = round(fleet_size * solo_wall_s / max(fleet_wall_s, 1e-9), 3)
+    row["n_members"] = n
+    return row
+
+
+def telemetry(n: int = 4096, out: str = "telemetry.jsonl", *, device="cuda") -> dict:
+    """The ``--telemetry [out] [n]`` mode (bench.py::_telemetry): one
+    collected sparse run (in-tick write-backs off, 48-tick chunks, member 7
+    killed, 5% loss) with the first-suspect / first-dead recorder, exported
+    as a ``counters`` row of the run's totals and two
+    ``latency_histogram`` rows (JSONL at ``out``) and a Prometheus snapshot
+    (``out + ".prom"``). Returns ``{"rows", "totals"}``."""
+    from scalecube_cluster_tpu_torch.obs.counters import SHARED_COUNTERS, SIM_ONLY_COUNTERS
+    from scalecube_cluster_tpu_torch.obs.export import append_jsonl, write_prometheus
+    from scalecube_cluster_tpu_torch.obs.latency import detection_latencies, latency_histogram
+    from scalecube_cluster_tpu_torch.obs.profiling import trace_scope
+
+    params = SparseParams.for_n(n, in_scan_writeback=False)
+    state = kill_sparse(
+        init_sparse_full_view(n, params.slot_budget, record_latency=True, device=device), 7
+    )
+    plan = FaultPlan.uniform(loss_percent=5.0, device=device)
+    ticks = 240
+    with trace_scope("bench/telemetry_run"):
+        state, traces = run_sparse_chunked(params, state, plan, ticks, chunk=48, collect=True)
+    meta = run_metadata(n=n, slot_budget=params.slot_budget, seed=0)
+    totals = {k: int(traces[k].sum()) for k in SHARED_COUNTERS + SIM_ONLY_COUNTERS
+              if k in traces}
+    rows = [make_row("counters", {**totals, "n_ticks": ticks}, meta)]
+    lat = detection_latencies(state, {7: 0})
+    for event, arr in (("first_suspect", lat["suspect_latency"]),
+                       ("first_dead", lat["dead_latency"])):
+        rows.append(make_row("latency_histogram", {"event": event, **latency_histogram(arr)},
+                             meta))
+    append_jsonl(out, rows)
+    write_prometheus(out + ".prom", rows)
+    return {"rows": rows, "totals": totals}
+
+
 def measure_persistent_ksweep(
     n: int = 4096, k_max: int = 8, reps: int = 4, slot_budget: int | None = None
 ) -> list[dict]:
@@ -817,6 +932,12 @@ def main(argv) -> int:
     ap.add_argument("--load", type=int, nargs="*", default=None, metavar="PRODUCERS N",
                     help="the wire load harness: PRODUCERS producers (default 32) against "
                     "N members (default 1024)")
+    ap.add_argument("--fleet", type=int, nargs="*", default=None, metavar="B N",
+                    help="the multi-tenant fleet rung: B tenants (default 4) of N members "
+                    "(default 1024)")
+    ap.add_argument("--telemetry", nargs="*", default=None, metavar="OUT N",
+                    help="the telemetry export: OUT (default telemetry.jsonl), N members "
+                    "(default 4096)")
     args = ap.parse_args(argv[1:])
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the measurement needs the card", file=sys.stderr)
@@ -855,6 +976,17 @@ def main(argv) -> int:
     if args.load is not None:
         producers, n = (args.load + [32, 1024][len(args.load):])[:2]
         print(jsonl_line(measure_load(producers, n)), flush=True)
+        return 0
+    if args.fleet is not None:
+        b_count, n = (args.fleet + [4, 1024][len(args.fleet):])[:2]
+        print(jsonl_line(measure_fleet(b_count, n)), flush=True)
+        return 0
+    if args.telemetry is not None:
+        out = args.telemetry[0] if args.telemetry else "telemetry.jsonl"
+        n = int(args.telemetry[1]) if len(args.telemetry) > 1 else 4096
+        res = telemetry(n, out)
+        print(json.dumps({"telemetry": out, "rows": len(res["rows"]), "ticks": 240, "n": n}),
+              flush=True)
         return 0
     if args.tracer_overhead is not None:
         emit("bench_tracer", measure_tracer_overhead(args.tracer_overhead, args.slot_budget)[0])

@@ -293,7 +293,12 @@ class KeyTable:
         todo = [k for k in self.keys if k._sched is None]
         if not todo:
             return
-        rows = _schedule_rows(np.stack([k.words for k in todo]))  # [K, B, 8]
-        table = torch.from_numpy(rows).to(device)
+        rows = torch.from_numpy(_schedule_rows(np.stack([k.words for k in todo])))  # [K, B, 8]
+        if torch.device(device).type == "cuda":
+            # Staged in pinned memory and copied without blocking the host:
+            # a pageable copy would wait for every launch queued before it.
+            table = rows.pin_memory().to(device, non_blocking=True)
+        else:
+            table = rows.to(device)
         for i, k in enumerate(todo):
             k._sched = table[i]

@@ -16,13 +16,21 @@ to the equivalent offline :class:`~scalecube_cluster_tpu_torch.sim.schedule.Faul
 run — the event masks are value-equal and mask application consumes no
 RNG, so the trajectories cannot diverge.
 
-The engine-agnostic contract lives in spec.py (:class:`EngineSpec`). The
-multi-tenant fleet (the reference's fleet.py and its engine entries) comes
-with the port's fleet slice.
+The engine-agnostic contract lives in spec.py (:class:`EngineSpec`), and
+the multi-tenant fleet control plane in fleet.py (:class:`FleetBridge` — B
+tenant universes stepped together on the ensemble axis, one fused-core
+launch a tick for a pool, with the same bit-parity anchor per tenant
+against its solo replay).
 """
 
 from scalecube_cluster_tpu_torch.serve.bridge import ServeBridge
-from scalecube_cluster_tpu_torch.serve.engine import run_rapid_serve_batch, run_serve_batch
+from scalecube_cluster_tpu_torch.serve.engine import (
+    run_fleet_rapid_serve_batch,
+    run_fleet_serve_batch,
+    run_fleet_serve_batch_elastic,
+    run_rapid_serve_batch,
+    run_serve_batch,
+)
 from scalecube_cluster_tpu_torch.serve.events import (
     EV_GOSSIP,
     EV_JOIN,
@@ -32,6 +40,12 @@ from scalecube_cluster_tpu_torch.serve.events import (
     event_masks,
     event_masks_rapid,
     stack_batches,
+)
+from scalecube_cluster_tpu_torch.serve.fleet import (
+    FleetBridge,
+    FleetPool,
+    TenantRouter,
+    TenantSession,
 )
 from scalecube_cluster_tpu_torch.serve.ingest import (
     BATCHER_ENGINES,
@@ -63,11 +77,15 @@ __all__ = [
     "EngineSpec",
     "EventBatch",
     "EventBatcher",
+    "FleetBridge",
+    "FleetPool",
     "OVERFLOW_POLICIES",
     "SERVE_QUALIFIER",
     "ServeBridge",
     "ServeEvent",
     "TcpEventSource",
+    "TenantRouter",
+    "TenantSession",
     "event_from_message",
     "event_masks",
     "event_masks_rapid",
@@ -75,6 +93,9 @@ __all__ = [
     "parse_trace_line",
     "register_engine_spec",
     "resolve_engine_spec",
+    "run_fleet_rapid_serve_batch",
+    "run_fleet_serve_batch",
+    "run_fleet_serve_batch_elastic",
     "run_rapid_serve_batch",
     "run_serve_batch",
     "stack_batches",

@@ -1,6 +1,5 @@
 """Seeded multi-producer load harness: chaos at the wire for the bridge
-(port of scalecube_cluster_tpu/serve/load.py; the multi-tenant
-``run_fleet_load`` comes with the port's fleet).
+(port of scalecube_cluster_tpu/serve/load.py).
 
 The sim plane got its adversarial certifier in the FaultSchedule/chaos work;
 this is the serving plane's — N concurrent TCP producers (honest and
@@ -39,6 +38,9 @@ harness certifies for the server side.
 :func:`run_load` returns the audit dict and emits one schema-versioned
 ``kind="load"`` row (obs/export.py) with throughput, SLO percentiles and
 the full wire/ingest accounting; ``bench.py --load`` is the benchmark rung.
+:func:`run_fleet_load` is its multi-tenant twin against one live
+:class:`~scalecube_cluster_tpu_torch.serve.fleet.FleetBridge`, audited per
+victim tenant.
 The session runs on ``device`` (the card unless the caller asks for the
 CPU), through the fused sparse core where ``pallas_core`` and the width
 allow it.
@@ -440,3 +442,208 @@ async def run_load(
         "wire": server.wire_stats(),
     }
 
+
+async def run_fleet_load(
+    *,
+    n: int = 32,
+    slot_budget: int = 64,
+    tenants: int = 4,
+    hostile_tenants: int = 1,
+    hostile_producers: int = 5,
+    events_per_producer: int = 200,
+    fleet_size: int | None = None,
+    batch_ticks: int = 8,
+    capacity: int = 32,
+    max_pending: int = 2048,
+    overflow_policy: str = "defer",
+    burst: int = 32,
+    seed: int = 0,
+    accept_idle_timeout_ms: int = 1_000,
+    settle_s: float = 0.002,
+    deadline_s: float = 300.0,
+    export_path: str | None = None,
+    pallas_core: bool = False,
+    device="cuda",
+) -> dict:
+    """Multi-tenant producer fleet against ONE live FleetBridge session.
+
+    Every tenant gets its own honest producer stream (tenant-tagged wire
+    events); the last ``hostile_tenants`` tenants ALSO run a rotation of
+    the adversarial profiles (reject / malformed / oversized / garbage /
+    slowloris, ``hostile_producers`` connections each) — the cross-tenant
+    blast-radius experiment. The audit certifies, per VICTIM (fully honest)
+    tenant:
+
+    - conservation: every tenant-tagged event acked into its batcher is
+      served or still pending — ``pushed == served + pending + shed`` with
+      ``shed == 0`` under the defer policy;
+    - zero collateral backpressure: a victim's producers are never paused
+      for a hostile tenant's queue (per-tenant ``backpressure_total == 0``
+      as long as the victim's own rate fits its bound);
+    - a live SLO row: the victim's ``fleet_tenant`` percentiles exist and
+      its events all reached verdicts;
+
+    plus the fleet ledger ``requested == placed + pending + deferred +
+    evicted`` (asserted at every launch boundary during the run, snapshot
+    returned). The fleet runs on ``device`` (the card unless the caller
+    asks for the CPU), through the fused sparse core where ``pallas_core``
+    and the width allow it.
+    """
+    from scalecube_cluster_tpu_torch.serve.fleet import FleetBridge
+
+    params = SparseParams.for_n(n, slot_budget=slot_budget, pallas_core=pallas_core)
+    fleet = FleetBridge(
+        params,
+        engine="sparse",
+        fleet_size=tenants if fleet_size is None else fleet_size,
+        batch_ticks=batch_ticks,
+        capacity=capacity,
+        max_pending=max_pending,
+        overflow_policy=overflow_policy,
+        export_path=export_path,
+        device=device,
+    )
+    cfg = TransportConfig(
+        connect_timeout=2_000,
+        accept_idle_timeout_ms=accept_idle_timeout_ms,
+    )
+    server = await TcpTransport.bind(cfg)
+    g_slots = fleet.base_pool.g_slots
+
+    hostile_ids = set(range(tenants - hostile_tenants, tenants))
+    hostile_rotation = PROFILES[1:]
+    jobs: list[tuple[str, int]] = [("honest", t) for t in range(tenants)]
+    for t in sorted(hostile_ids):
+        for j in range(hostile_producers):
+            jobs.append((hostile_rotation[j % len(hostile_rotation)], t))
+    stats = [ProducerStats(profile=p) for p, _ in jobs]
+    rngs = [
+        random.Random((seed << 20) ^ (i * 0x9E3779B1)) for i in range(len(jobs))
+    ]
+
+    # Warm-up launch BEFORE traffic (the one-time kernel build; see run_load).
+    fleet.step_fleet()
+
+    t0 = time.monotonic()
+    producers_done = asyncio.Event()
+
+    def stop_when() -> bool:
+        if time.monotonic() - t0 > deadline_s:
+            return True
+        if not producers_done.is_set():
+            return False
+        expected = sum(s.expect_pump for s in stats)
+        arrived = (
+            sum(s.batcher.pushed_total for s in fleet.tenants.values())
+            + fleet.ingest_rejected
+        )
+        return arrived >= expected and len(fleet.router) == 0
+
+    async def producer_fleet():
+        try:
+            await asyncio.gather(
+                *(
+                    _producer(
+                        server.address.host,
+                        server.address.port,
+                        stats[i],
+                        rngs[i],
+                        n=n,
+                        g_slots=g_slots,
+                        n_events=events_per_producer,
+                        burst=burst,
+                        churn_every=0,
+                        max_frame=cfg.max_frame_length,
+                        idle_timeout_s=accept_idle_timeout_ms / 1000.0,
+                        tenant=jobs[i][1],
+                    )
+                    for i in range(len(jobs))
+                )
+            )
+        finally:
+            producers_done.set()
+
+    fleet_task = asyncio.ensure_future(producer_fleet())
+    try:
+        await fleet.run_live(server, settle_s=settle_s, stop_when=stop_when)
+        try:
+            await asyncio.wait_for(asyncio.shield(fleet_task), timeout=30.0)
+        except asyncio.TimeoutError:
+            pass
+    finally:
+        if not fleet_task.done():
+            fleet_task.cancel()
+            try:
+                await fleet_task
+            except asyncio.CancelledError:
+                pass
+        await server.stop()
+    wall_s = time.monotonic() - t0
+
+    # -- per-tenant audit ---------------------------------------------------
+    ledger = fleet.assert_fleet_conservation()
+    sent_by_tenant: dict[int, int] = {}
+    for (profile, t), s in zip(jobs, stats):
+        sent_by_tenant[t] = sent_by_tenant.get(t, 0) + s.sent_valid
+    tenant_audits: dict[int, dict] = {}
+    victims_clean = True
+    for t in range(tenants):
+        session = fleet.tenants.get(t)
+        if session is None:
+            # A tenant whose every frame was lost to wire hostility never
+            # got admitted — only possible for hostile tenants.
+            tenant_audits[t] = {"admitted": False, "hostile": t in hostile_ids}
+            if t not in hostile_ids:
+                victims_clean = False
+            continue
+        b = session.batcher
+        conservation_ok = b.pushed_total == session.events_served + len(b) + b.shed_total
+        audit = {
+            "admitted": True,
+            "hostile": t in hostile_ids,
+            "sent_valid": sent_by_tenant.get(t, 0),
+            "pushed": b.pushed_total,
+            "served": session.events_served,
+            "pending": len(b),
+            "shed": b.shed_total,
+            "backpressure_pauses": b.backpressure_total,
+            "conservation_ok": conservation_ok,
+        }
+        tenant_audits[t] = audit
+        if t not in hostile_ids:
+            if not conservation_ok or b.shed_total or len(b):
+                victims_clean = False
+    errors = [e for s in stats for e in s.errors]
+    summary = fleet.close()
+    payload = {
+        "tenants": tenants,
+        "hostile_tenants": hostile_tenants,
+        "producers": len(jobs),
+        "events_sent_valid": sum(s.sent_valid for s in stats),
+        "events_injected_malformed": sum(s.sent_reject for s in stats),
+        "wire_bad_writes": sum(s.sent_wire_bad for s in stats),
+        "rejected": fleet.ingest_rejected,
+        "served": fleet.events_served,
+        "launches": fleet.fleet_launches,
+        "ledger": ledger,
+        "victims_clean": victims_clean,
+        "producer_errors": len(errors),
+        "wall_s": wall_s,
+        "seed": seed,
+    }
+    row = make_row(
+        "fleet_load", payload, run_metadata(n=n, slot_budget=slot_budget)
+    )
+    if export_path:
+        from scalecube_cluster_tpu_torch.obs.export import append_jsonl
+
+        append_jsonl(export_path, [row])
+    return {
+        "row": row,
+        "fleet_row": summary,
+        "tenant_audits": tenant_audits,
+        "ledger": ledger,
+        "victims_clean": victims_clean,
+        "errors": errors,
+        "fleet": fleet,
+    }

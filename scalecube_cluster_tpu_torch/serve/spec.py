@@ -5,10 +5,10 @@ The per-engine facts live in one frozen :class:`EngineSpec` record, so
 :class:`~scalecube_cluster_tpu_torch.serve.bridge.ServeBridge` drives any
 registered engine behind one launch/collect protocol:
 
-- ``runner`` — the solo batch entry (serve/engine.py), the same
-  ``(params, state, plan, batch, collect, knobs)`` call shape across
-  engines; ``fleet_runner`` and ``fleet_writeback`` are None until the
-  port's fleet.
+- ``runner`` / ``fleet_runner`` — the solo and fleet batch entries
+  (serve/engine.py), the same ``(params, state, plan, batch, collect,
+  knobs)`` call shape across engines; ``fleet_writeback`` frees a stacked
+  fleet state's slots between launches (sim/ensemble.py).
 - ``masks`` — the event-mask function the runner consumes (serve/events.py).
 - ``init`` — fresh-state constructor, ``init(n, **kw)`` (``device=`` goes
   through ``kw``).
@@ -30,6 +30,9 @@ from typing import Callable
 
 from scalecube_cluster_tpu_torch.obs.counters import SHARED_COUNTERS
 from scalecube_cluster_tpu_torch.serve.engine import (
+    run_fleet_rapid_serve_batch,
+    run_fleet_serve_batch,
+    run_fleet_serve_batch_elastic,
     run_rapid_serve_batch,
     run_serve_batch,
     run_serve_batch_elastic,
@@ -65,6 +68,12 @@ def _sparse_writeback(params, state):
     return writeback_free(params, state)
 
 
+def _sparse_fleet_writeback(params, states):
+    from scalecube_cluster_tpu_torch.sim.ensemble import ensemble_writeback_free
+
+    return ensemble_writeback_free(params, states)
+
+
 def _sparse_shardings(state, mesh):
     raise NotImplementedError(MESH_ERROR)
 
@@ -84,7 +93,7 @@ class EngineSpec:
     #: True when the runner consumes the state argument (rebind the result).
     donates: bool
     runner: Callable  #: solo batch entry (serve/engine.py)
-    fleet_runner: Callable | None  #: the fleet entry (None: not ported)
+    fleet_runner: Callable | None  #: the fleet entry (None: no fleet)
     masks: Callable  #: event-mask function (serve/events.py)
     init: Callable  #: fresh-state constructor, ``init(n, **kw)``
     n_of: Callable  #: params -> member count n
@@ -126,7 +135,7 @@ def _sparse_spec(name: str, elastic: bool, shardings=None) -> EngineSpec:
         elastic=elastic,
         donates=True,
         runner=run_serve_batch_elastic if elastic else run_serve_batch,
-        fleet_runner=None,
+        fleet_runner=run_fleet_serve_batch_elastic if elastic else run_fleet_serve_batch,
         masks=event_masks_elastic if elastic else event_masks,
         init=_sparse_init,
         n_of=lambda params: params.base.n,
@@ -137,6 +146,7 @@ def _sparse_spec(name: str, elastic: bool, shardings=None) -> EngineSpec:
         },
         init_kw_of=lambda params: {"slot_budget": params.slot_budget},
         writeback=_sparse_writeback,
+        fleet_writeback=_sparse_fleet_writeback,
         shardings=shardings,
         promotable=True,
     )
@@ -154,7 +164,7 @@ def _rapid_spec(name: str, fallback: bool) -> EngineSpec:
         elastic=False,
         donates=False,
         runner=run_rapid_serve_batch,
-        fleet_runner=None,
+        fleet_runner=run_fleet_rapid_serve_batch,
         masks=event_masks_rapid,
         init=init,
         n_of=lambda params: params.n,

@@ -24,10 +24,16 @@ Population statistics over the batch live in obs/ensemble.py; the Rapid
 twin (sim/rapid.py) steps through the same runner pieces (``_Inputs``
 with the join lane, ``_step``).
 
+Elastic sparse states (``live_mask``) stack and step like fixed-shape
+ones: the batched tick takes the single tick's join and gossip lanes, which
+is what the fleet (serve/fleet.py) steps its tenants through. A fleet's
+fault plan is one plan for every tenant: :func:`expand_plan` gives it the
+universe axis as an expanded view, never B copies.
+
 Not ported yet (ROADMAP Queue A; the runners raise
-``NotImplementedError``): flight-recorder rings and elastic states inside
-an ensemble (A13/A14), zone worlds and tracked user gossip in ensembles,
-the fleet (A13), chaos / sweep (A14) and the universe mesh (A15).
+``NotImplementedError``): flight-recorder rings inside an ensemble (A14),
+elastic Rapid stacks, zone worlds and tracked user gossip in ensembles,
+chaos / sweep (A14) and the universe mesh (A15).
 """
 
 from __future__ import annotations
@@ -152,9 +158,25 @@ def set_universe(tree, b: int, sub):
     :func:`stack_universes` contract in reverse; structures must agree).
     The stacked tensors are written in place and returned in a new record;
     the host leaves (``rng``, ``t_host``) are copied."""
-    if _structure(index_universe(tree, b)) != _structure(sub):
+    if _structure(_universe_view(tree, b)) != _structure(sub):
         raise ValueError("set_universe: the universe's structure differs from the stack's")
     return _set(tree, b, sub)
+
+
+def _universe_view(tree, b: int):
+    """:func:`index_universe` without the copies (views of the stack),
+    for reading a universe's structure."""
+    if _is_record(tree):
+        return type(tree)(**{
+            f.name: _universe_view(getattr(tree, f.name), b) if f.compare
+            else getattr(tree, f.name)
+            for f in dataclasses.fields(tree)
+        })
+    if isinstance(tree, np.ndarray) and tree.ndim == 1:
+        return int(tree[b])
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return tree[b]
+    return tree
 
 
 def _set(tree, b, sub):
@@ -248,16 +270,33 @@ def ensemble_size(states) -> int:
     return int(states.alive.shape[0])
 
 
+def expand_plan(plan: FaultPlan, b: int) -> FaultPlan:
+    """One ``[N, N]`` (or ``[1, 1]``) plan shared by ``b`` universes, as
+    the stacked plan the runners take: every matrix an expanded view with
+    a leading axis of ``b`` (no copy; the reference closes over the one
+    plan and vmap broadcasts it)."""
+    if plan.block.dim() != 2:
+        raise ValueError("expand_plan takes one universe's plan")
+    return plan.replace(
+        block=plan.block.expand(b, *plan.block.shape),
+        loss=plan.loss.expand(b, *plan.loss.shape),
+        mean_delay=plan.mean_delay.expand(b, *plan.mean_delay.shape),
+    )
+
+
 # --------------------------------------------------------------- stepping
-def _check_states(states) -> None:
+def _check_states(states, elastic: bool = False) -> None:
+    """Refuse what the batched ticks do not take: trace rings, and elastic
+    states unless the engine's batched tick has the join lane
+    (``elastic``: the sparse tick has, Rapid's ensemble does not yet)."""
     if getattr(states, "trace", None) is not None:
         raise NotImplementedError(
             "flight-recorder rings inside an ensemble are not ported yet "
             "(ROADMAP A9 in ensembles): stack states without trace_capacity"
         )
-    if getattr(states, "live_mask", None) is not None:
+    if not elastic and getattr(states, "live_mask", None) is not None:
         raise NotImplementedError(
-            "elastic states inside an ensemble are not ported yet "
+            "elastic states inside this ensemble are not ported yet "
             "(ROADMAP A10 in ensembles): stack fixed-shape states"
         )
 
@@ -420,7 +459,9 @@ def _step(tick_fn, states, plan, events, knobs, collect):
     for t in groups:
         idx_np = np.flatnonzero(ts == t)
         idx = torch.from_numpy(idx_np).to(dev)
-        sub_ev = None if events is None else tuple(e.index_select(0, idx) for e in events)
+        sub_ev = None if events is None else tuple(
+            None if e is None else e.index_select(0, idx) for e in events
+        )
         sub, m = tick_fn(
             _select(states, idx, idx_np), _select(plan, idx, idx_np), sub_ev,
             _select(knobs, idx, idx_np),
@@ -489,12 +530,17 @@ def run_ensemble_sparse_ticks(params: SparseParams, states: SparseState, plans,
                               knobs: Knobs | None = None):
     """Sparse twin of :func:`run_ensemble_ticks`: B working-set universes.
     Consumes ``states`` (the stacked ``view_T`` and slab are updated in
-    place, as the reference donates them)."""
-    _check_states(states)
+    place, as the reference donates them). An elastic stack
+    (``live_mask``) fires the schedule's join lane too, as the single
+    runner does."""
+    _check_states(states, elastic=True)
     b = ensemble_size(states)
-    inputs = _Inputs(plans, b, params.base.n, states.device, collect)
+    inputs = _Inputs(plans, b, params.base.n, states.device, collect,
+                     joins=states.live_mask is not None)
 
     def tick(st, plan, events, kn):
+        if events is not None and len(events) == 3:
+            events = (events[0], events[1], None, events[2])  # the join lane
         return ensemble_sparse_tick(params, st, plan, collect=collect, events=events, knobs=kn)
 
     per_tick = []

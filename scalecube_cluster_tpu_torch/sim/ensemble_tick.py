@@ -27,9 +27,11 @@ a universe with nobody joining and no SYNC due equals the fast one
 This module keeps its own batched tick beside the single ticks rather than
 running the single tick as a batch of one: the single ticks' index
 operations (``x[idx]``) would become gathers over a universe axis and so
-change the main paths' launch counts, and the flight recorder and elastic
-membership, which ensembles do not take yet (ROADMAP A11 follow-ups),
-live only in the single sparse tick.
+change the main paths' launch counts, and the flight recorder, which
+ensembles do not take yet (ROADMAP A14), lives only in the single sparse
+tick. The batched sparse tick takes the single tick's event lanes: kill,
+restart, user-gossip injection and the elastic join (the fleet's tenants,
+serve/fleet.py).
 """
 
 from __future__ import annotations
@@ -614,12 +616,18 @@ def ensemble_sim_tick(params, state, plan: FaultPlan, seeds, collect: bool = Tru
 
 
 # --------------------------------------------------------- sparse tick
-def apply_events_sparse(state, kill_mask, restart_mask):
-    """sim/sparse.py::apply_events_sparse per universe (``[B, N]`` kill and
-    restart masks; the recorder and joins stay with the single tick)."""
+def apply_events_sparse(state, kill_mask, restart_mask, gossip_mask=None, join_mask=None):
+    """sim/sparse.py::apply_events_sparse per universe: ``[B, N]`` kill and
+    restart masks, with ``gossip_mask [B, N, G]`` the user-gossip
+    injections and with ``join_mask [B, N]`` the elastic joins (a join
+    activates a capacity row like a restart and sets its ``live_mask``
+    bit). Consumes no RNG. The flight recorder stays with the single tick
+    (sim/ensemble.py refuses traced stacks)."""
     n = state.alive.shape[1]
-    fresh = restart_mask
+    fresh = restart_mask if join_mask is None else restart_mask | join_mask
     any_ev = (kill_mask | fresh).any(dim=1)
+    if gossip_mask is not None:
+        any_ev = any_ev | gossip_mask.flatten(1).any(dim=1)
     new_epoch = torch.where(fresh, torch.clamp_max(state.epoch + 1, EPOCH_MAX), state.epoch)
     uinf_ids = state.uinf_ids
     if uinf_ids.shape[-1] > 0:
@@ -630,12 +638,20 @@ def apply_events_sparse(state, kill_mask, restart_mask):
         alive=(state.alive & ~kill_mask) | fresh,
         epoch=new_epoch,
         inc_self=torch.where(fresh, 0, state.inc_self),
-        age=torch.where(fresh[..., None], torch.tensor(AGE_STALE, dtype=torch.int8), state.age),
-        susp=torch.where(fresh[..., None], torch.tensor(0, dtype=torch.int16), state.susp),
+        # Python scalars keep the int8 / int16 planes' dtypes and, unlike a
+        # CPU tensor operand, need no host-to-device copy.
+        age=torch.where(fresh[..., None], AGE_STALE, state.age),
+        susp=torch.where(fresh[..., None], 0, state.susp),
         useen=torch.where(fresh[..., None], False, state.useen),
         uptr=torch.where(fresh[..., None], 0, state.uptr),
         uinf_ids=uinf_ids,
     )
+    if join_mask is not None and st.live_mask is not None:
+        st = st.replace(live_mask=st.live_mask | join_mask)
+    if gossip_mask is not None:
+        st = st.replace(
+            useen=st.useen | gossip_mask, uage=torch.where(gossip_mask, 0, st.uage)
+        )
     if st.lat_first_suspect is not None:
         st = st.replace(
             lat_first_suspect=torch.where(fresh, -1, st.lat_first_suspect),
@@ -804,7 +820,9 @@ def _sparse_sync_zeros(b, n, w, collect, dev):
 def ensemble_sparse_tick(params, state, plan: FaultPlan, collect: bool = True,
                          events=None, knobs: Knobs | None = None):
     """sim/sparse.py::sparse_tick over B universes sharing one host tick.
-    ``events`` is None or ``(kill [B, N], restart [B, N])``. Consumes
+    ``events`` is None, ``(kill [B, N], restart [B, N][, gossip [B, N, G]])``
+    or the elastic 4-tuple ``(kill, restart, gossip or None, join [B, N])``,
+    the lanes of the single tick (:func:`apply_events_sparse`). Consumes
     ``state``: the slab load and write-back update its stacked tensors in
     place. Returns ``(state, metrics)`` with ``[B]``-leading metrics."""
     p = params.base
@@ -817,10 +835,12 @@ def ensemble_sparse_tick(params, state, plan: FaultPlan, collect: bool = True,
             "knobs require the XLA tick core: sparse_core_pallas bakes the "
             "suspicion timeout as a kernel constant (set pallas_core=False)"
         )
-    fresh_m = None
+    fresh_m = join_m = None
     if events is not None:
-        state = apply_events_sparse(state, events[0], events[1])
-        fresh_m = events[1]
+        gossip_m = events[2] if len(events) > 2 else None
+        join_m = events[3] if len(events) > 3 else None
+        state = apply_events_sparse(state, events[0], events[1], gossip_m, join_m)
+        fresh_m = events[1] if join_m is None else events[1] | join_m
     dev = state.device
     b = state.alive.shape[0]
     group = SPARSE_GROUP if n % SPARSE_GROUP == 0 else GROUP
@@ -897,7 +917,17 @@ def ensemble_sparse_tick(params, state, plan: FaultPlan, collect: bool = True,
         req = req | fresh_m
     req = req & (subj_slot < 0)
     cap = params.alloc_cap
-    req_rank = torch.cumsum(req.to(_I32), 1, dtype=_I32) - 1
+    if join_m is not None:
+        # Elastic: fresh activations outrank the organic requests.
+        fresh_req = req & fresh_m
+        rank_fresh = torch.cumsum(fresh_req.to(_I32), 1, dtype=_I32) - 1
+        rank_rest = (
+            torch.cumsum((req & ~fresh_m).to(_I32), 1, dtype=_I32) - 1
+            + _cnt(fresh_req)[:, None]
+        )
+        req_rank = torch.where(fresh_req, rank_fresh, rank_rest)
+    else:
+        req_rank = torch.cumsum(req.to(_I32), 1, dtype=_I32) - 1
     free = slot_subj < 0
     free_slots = _first_true(free, cap, S - 1)
     n_free = _cnt(free)
@@ -1114,8 +1144,8 @@ def ensemble_sparse_tick(params, state, plan: FaultPlan, collect: bool = True,
         "fault_lost": acct[3],
         "inc_max": inc_self.amax(dim=1),
         "epoch_max": state.epoch.amax(dim=1),
-        "joins_admitted": zero,
-        "n_live": zero,
+        "joins_admitted": _cnt(join_m) if join_m is not None else zero,
+        "n_live": _cnt(new_state.live_mask) if new_state.live_mask is not None else zero,
     }
     for key in SHARED_COUNTERS:
         metrics.setdefault(key, zero)

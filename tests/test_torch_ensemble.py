@@ -449,8 +449,10 @@ def test_stack_universes_refuses_mismatched_structures():
 
 
 def test_unported_ensemble_options_raise():
-    """Traced and elastic states, zone worlds and the in-scan write-back of
-    the chunked runner raise, naming what is missing."""
+    """Traced states and the in-scan write-back of the chunked runner
+    raise, naming what is missing, as do unstacked plans; an elastic stack
+    steps (the batched tick's join lane), each universe reporting its
+    ``n_live``."""
     p = port_params(_sparse_jp(16))
     plans = TE.stack_universes(TPlan.uniform(5.0, device="cpu") for _ in range(2))
     traced = TE.init_ensemble_sparse(16, range(2), slot_budget=64, trace_capacity=256,
@@ -458,8 +460,8 @@ def test_unported_ensemble_options_raise():
     with pytest.raises(NotImplementedError, match="A9"):
         TE.run_ensemble_sparse_ticks(p, traced, plans, 1)
     elastic = TE.init_ensemble_sparse(8, range(2), slot_budget=64, n_alloc=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        TE.run_ensemble_sparse_ticks(p, elastic, plans, 1)
+    elastic, tr = TE.run_ensemble_sparse_ticks(p, elastic, plans, 1)
+    assert tr["n_live"].tolist() == [[8], [8]] and elastic.t_host.tolist() == [1, 1]
     with pytest.raises(ValueError, match="in_scan_writeback"):
         TE.run_ensemble_sparse_chunked(p, TE.init_ensemble_sparse(16, range(2), slot_budget=64,
                                                                   device="cpu"), plans, 4)

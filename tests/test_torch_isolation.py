@@ -53,8 +53,8 @@ def test_sources_exist():
                    "obs/slo.py", "obs/trace.py", "obs/tracer.py", "obs/ensemble.py",
                    "sim/ensemble.py", "sim/ensemble_tick.py", "sim/rapid.py",
                    "testlib/__init__.py",
-                   "testlib/invariants.py", "testlib/serving.py",
-                   "serve/__init__.py", "serve/events.py", "serve/engine.py",
+                   "testlib/invariants.py", "testlib/serving.py", "testlib/fleet.py",
+                   "serve/__init__.py", "serve/events.py", "serve/engine.py", "serve/fleet.py",
                    "serve/spec.py", "serve/bridge.py", "serve/ingest.py",
                    "serve/telemetry.py", "serve/load.py", "transport/__init__.py",
                    "transport/api.py", "transport/codec.py", "transport/message.py",

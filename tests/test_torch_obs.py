@@ -177,3 +177,29 @@ def test_trace_scope():
         with TProf.trace_scope("chunk_dispatch"):
             torch.ones(4).sum()
     assert any(e.name == "chunk_dispatch" for e in prof.events())
+
+
+def test_telemetry_rung_matches_reference(tmp_path):
+    """``bench.py --telemetry`` at n=256: the port's rows (the run's counter
+    totals and the first-suspect / first-dead histograms) and its
+    Prometheus snapshot equal the reference's, wall-clock and build keys
+    aside."""
+    import json
+
+    import bench as jbench
+    from scalecube_cluster_tpu_torch.bench import telemetry
+    from scalecube_cluster_tpu_torch.testlib.serving import row_values
+
+    jout, tout = str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")
+    jbench._telemetry(256, out=jout)
+    res = telemetry(256, tout, device="cpu")
+    jrows = [json.loads(line) for line in open(jout)]
+    trows = [json.loads(line) for line in open(tout)]
+    assert trows == [json.loads(json.dumps(r)) for r in res["rows"]]
+    assert [r["kind"] for r in jrows] == [r["kind"] for r in trows] == [
+        "counters", "latency_histogram", "latency_histogram"]
+    for a, b in zip(jrows, trows):
+        assert row_values(a) == row_values(b), a["kind"]
+    assert trows[0]["n_ticks"] == 240 and trows[0]["verdicts_dead"] > 0
+    prom = open(tout + ".prom").read()
+    assert prom == TExp.prometheus_text(trows)

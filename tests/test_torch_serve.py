@@ -62,10 +62,6 @@ GROUPS = {
     "rapid": ("rapid",),
 }
 OFFLINE = ("clean", "kill-restart", "knobbed", "elastic-ticked", "rapid")
-FLEET_NAMES = {
-    "FleetBridge", "FleetPool", "TenantRouter", "TenantSession",
-    "run_fleet_rapid_serve_batch", "run_fleet_serve_batch", "run_fleet_serve_batch_elastic",
-}
 
 
 # ------------------------------------------------------------ the reference
@@ -320,16 +316,19 @@ def test_batcher_matches_reference(policy, engine, admit_rows):
 
 # ----------------------------------------------------------------- specs
 def test_engine_specs_match_reference():
-    """The same five names with the same facts; inference from a state as
-    the reference infers; mesh placement refused until the multi-device
-    engine; the fleet entries absent."""
+    """The same five names with the same facts, the fleet entries and
+    fleet write-backs where the reference has them; inference from a state
+    as the reference infers; mesh placement refused until the multi-device
+    engine; the package exports the reference's names."""
     assert sorted(TSPEC.ENGINE_SPECS) == sorted(JSPEC.ENGINE_SPECS)
     for name, spec in TSPEC.ENGINE_SPECS.items():
         ref = JSPEC.ENGINE_SPECS[name]
         for f in ("batcher_engine", "elastic", "donates", "promotable", "counter_keys"):
             assert getattr(spec, f) == getattr(ref, f), (name, f)
-        assert (spec.writeback is None) == (ref.writeback is None), name
-        assert spec.fleet_runner is None and spec.fleet_writeback is None
+        for f in ("writeback", "fleet_runner", "fleet_writeback"):
+            assert (getattr(spec, f) is None) == (getattr(ref, f) is None), (name, f)
+        if ref.fleet_runner is not None:
+            assert spec.fleet_runner.__name__ == ref.fleet_runner.__name__, name
     sparse = SV._session(SV.scenario("clean"), "cpu")[1]
     elastic = SV._session(SV.scenario("elastic"), "cpu")[1]
     rapid = SV._session(SV.scenario("rapid"), "cpu")[1]
@@ -343,5 +342,4 @@ def test_engine_specs_match_reference():
         TSPEC.ENGINE_SPECS["sparse-gspmd"].place(sparse, mesh=object())
     with pytest.raises(NotImplementedError, match="A15"):
         TS.ServeBridge(SV._session(SV.scenario("clean"), "cpu")[0], sparse, mesh=object())
-    assert set(JS.__all__) - set(TS.__all__) == FLEET_NAMES
-    assert set(TS.__all__) <= set(JS.__all__)
+    assert set(JS.__all__) == set(TS.__all__)

@@ -335,3 +335,45 @@ def test_zone_tick_metrics_match_jax(n, z):
     if n == 10240:
         pairs = np.bincount(zone[alive], minlength=z).astype(np.int64)
         assert (pairs * (pairs - 1)).max() > 1 << 24
+
+
+@pytest.mark.parametrize("n", [30, 33])
+def test_dense_tick_zone_world_leg_tail_matches_jax(n):
+    """The dense engine's tick at n % 8 != 0 (the unstructured fan-out) with
+    a 3-zone world over a dense loss plan, where its FD relay legs are
+    ``[N, 2]`` edge sets with a scalar tail in XLA:CPU's vector loop: three
+    12-tick chunks against the reference's tick under ``jax.jit``, every
+    state leaf and every metric (float32 as bits) equal after each."""
+    import dataclasses
+
+    from scalecube_cluster_tpu.sim import run as JR
+    from scalecube_cluster_tpu.sim import state as JS
+    from scalecube_cluster_tpu_torch.sim import run as TR
+    from scalecube_cluster_tpu_torch.sim import state as TS
+    from scalecube_cluster_tpu_torch.sim.convert import dense_state_to_numpy
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from tests.test_sim import small_params
+
+    jp = small_params(n, suspicion_ticks=12)
+    assert jp.ping_req_members == 2
+    tp = SimParams(**dataclasses.asdict(jp))
+    rng = np.random.default_rng(n)
+    loss = rng.uniform(0.0, 0.3, (n, n)).astype(np.float32)
+    zone_loss = rng.uniform(0.0, 0.3, (3, 3)).astype(np.float32)
+    jplan = JF.FaultPlan.clean(n).replace(loss=jnp.asarray(loss)).with_link_world(
+        JT.LinkWorld.even_zones(n, 3).replace(loss=jnp.asarray(zone_loss)))
+    tplan = TF.FaultPlan.clean(n, device="cpu").replace(loss=torch.from_numpy(loss)).with_link_world(
+        TT.LinkWorld.even_zones(n, 3, device="cpu").replace(loss=torch.from_numpy(zone_loss)))
+    js = JS.kill(JS.init_full_view(n, user_gossip_slots=2, seed=5), 3)
+    ts = TS.kill(TS.init_full_view(n, user_gossip_slots=2, seed=5, device="cpu"), 3)
+    for c in range(3):
+        js, jtr = JR.run_chunked(jp, js, jplan, JS.seeds_mask(n, [0]), 12, chunk=12)
+        ts, ttr = TR.run_chunked(tp, ts, tplan, TS.seeds_mask(n, [0], device="cpu"), 12,
+                                 chunk=12)
+        got = dense_state_to_numpy(ts)
+        for f in dataclasses.fields(js):
+            same(getattr(js, f.name), torch.from_numpy(np.asarray(got[f.name])), (c, f.name))
+        assert set(jtr) == set(ttr)
+        for k in jtr:
+            same(jtr[k], torch.from_numpy(np.asarray(ttr[k])), (c, k))
+    assert int(np.asarray(jtr["fault_lost"]).sum()) > 0
