@@ -209,7 +209,25 @@ Phases, each of which must pass (any failure exits non-zero):
     framing, phase 30's launch geometry — every victim tenant's events
     conserved, none shed, the hostile tenant's rejects counted;
 35. the kernel table as one JSON line, the card's name and power limit,
-    and the device line last.
+    and the device line last; phases 36–38 run before it:
+36. the sparse core's shard mode (csrc/sparse_core.cu, the explicit-SPMD
+    engine's launch): d=8 shards of n=32768, S=512, f=3 in one launch,
+    B=2 x d=4 at n=1024, S=256, and tile edges at S = 128 and 384 with the
+    block's edge members on lane-tile edges — every output bit-equal to
+    the plain version and to one launch per shard; time, bound and share
+    of the bound;
+37. the sharded engine (parallel/spmd.py) at n=1024, S=256, d=4, kernel
+    route and XLA core, clean, scheduled (kills, restarts, 5% loss) and
+    knobbed timelines: every leaf and trace key card == CPU and == the
+    single-device engine on the card, ``sparse_core`` launched on every
+    kernel-route tick; a traced XLA-core run card == CPU, merged with
+    ``merge_shard_rings`` and walked (C6, cross-shard chains);
+38. the sharded path at width, ``--shard-map 8 32768 --pallas``: a warm-up
+    and four 48-tick chunks interleaved with the single-device engine at
+    the same parameters — ms/tick of both, member·rounds/s, peak memory,
+    one ``sparse_core`` launch a tick for the 8 shards, synchronising
+    calls a tick, the exchange's bytes a tick; the final state and four
+    collected ticks bit-equal to the single-device run.
 
 Each path (the main paths, the k-sweep, the profile, the probes) runs
 with every kernel count set to 0 just before it and read just after. There is no CPU fallback: without a CUDA device the
@@ -3026,8 +3044,295 @@ def phase_fleet_load(torch):
     return launches, row
 
 
+#: Bytes of one window cell the shard mode reads (slab i32, age i8).
+SHARD_WINDOW_BYTES_PER_CELL = 4 + 1
+
+
+def shard_core_work(torch, ops):
+    """The least one shard-mode launch must do: :func:`core_work` of each
+    shard's block, plus reading once the window cells its function needs:
+    the active lanes of the window rows that a live edge delivers (rows
+    that ``ginv`` never names, or whose every edge is down, need no
+    read)."""
+    from scalecube_cluster_tpu_torch.ops.delivery import inv_from_structured
+    from scalecube_cluster_tpu_torch.testing import CORE_OPERANDS
+
+    bytes_moved = n_ops = 0
+    for z in range(ops["slab"].shape[0]):
+        one = {k: torch.from_numpy(ops[k][z]) for k in CORE_OPERANDS}
+        b, o = core_work(one)
+        inv = inv_from_structured(one["ginv"], one["rots"], one["slab"].shape[0], 32)
+        rows = int(torch.unique(inv[one["edge_ok"]]).numel())
+        lanes = int((one["slot_subj"] >= 0).sum())
+        bytes_moved += b + rows * lanes * SHARD_WINDOW_BYTES_PER_CELL + 4
+        n_ops += o
+    return bytes_moved, n_ops
+
+
+def phase_shard_core_vs_plain(torch):
+    """Phase 36: the sparse core's shard mode (the explicit-SPMD engine's
+    one launch a tick for all shards) against its plain version and
+    against one launch per shard."""
+    import numpy as np
+
+    from scalecube_cluster_tpu_torch.ops.sparse_core import (
+        TILE_LANES,
+        sparse_core,
+        sparse_core_reference,
+    )
+    from scalecube_cluster_tpu_torch.testing import shard_core_args, stacked_shard_operands
+
+    consts = dict(spread=48, susp_ticks=400, age_stale=120, sweep=98)
+    outs = ("slab2", "age2", "susp2", "self_rumor", "aggr")
+    two = [stacked_shard_operands(4, 256, 256, seed=s) for s in (21, 22)]
+    cases = {
+        "d=8 x n=32768": stacked_shard_operands(8, 4096, 512, seed=20),
+        "B=2 x d=4 x n=1024": {k: np.concatenate([two[0][k], two[1][k]]) for k in two[0]},
+        "tile edges S=128": stacked_shard_operands(4, 256, 128, seed=23, tile_edges=True),
+        "tile edges S=384": stacked_shard_operands(4, 256, 384, seed=24, tile_edges=True),
+    }
+    row = None
+    for tag, ops in cases.items():
+        args, kw = shard_core_args(ops, "cuda")
+        got = sparse_core(*args, **consts, **kw)
+        want = sparse_core_reference(*args, **consts, **kw)
+        torch.cuda.synchronize()
+        err = _compare(outs, got, want, f"shard mode {tag}")
+        z_count = ops["slab"].shape[0]
+        for z in range(z_count):
+            one = sparse_core(*(a[z] for a in args), **consts,
+                              row_base=kw["row_base"][z], slab_windows=kw["slab_windows"][z],
+                              age_windows=kw["age_windows"][z])
+            _compare(outs, one, [g[z] for g in got], f"shard mode {tag}, shard {z} alone")
+        torch.cuda.synchronize()
+        own = int((got[3] >= 0).sum())
+        line = (f"[36] sparse_core shard mode {tag} ({z_count} shards of "
+                f"{ops['slab'].shape[1]} rows, S={ops['slab'].shape[2]}, tile {TILE_LANES} lanes), "
+                f"one launch: bit-equal to plain and to {z_count} launches of one shard "
+                f"(max_abs_err {err}; {own} rows took a self rumor)")
+        if tag == "d=8 x n=32768":
+            k_ms = _time_cuda(torch, lambda: sparse_core(*args, **consts, **kw), 50)
+            p_ms = _time_cuda(torch, lambda: sparse_core_reference(*args, **consts, **kw), 3)
+            per_ms = _time_cuda(torch, lambda: [
+                sparse_core(*(a[z] for a in args), **consts,
+                            row_base=kw["row_base"][z], slab_windows=kw["slab_windows"][z],
+                            age_windows=kw["age_windows"][z]) for z in range(z_count)], 20)
+            row = {"shards": z_count, "n": z_count * ops["slab"].shape[1],
+                   "S": ops["slab"].shape[2], "f": ops["ginv"].shape[1], "max_abs_err": err,
+                   "ms": k_ms, "plain_ms": p_ms, "per_shard_launches_ms": per_ms,
+                   **_bound_row(*shard_core_work(torch, ops)), "library_ms": None}
+            row["share_of_bound"] = row["bound_ms"] / k_ms
+            line += (f"; kernel {k_ms:.4f} ms, {z_count} single-shard launches {per_ms:.4f} ms, "
+                     f"plain {p_ms:.4f} ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']} "
+                     f"({row['bytes']} B = {row['bytes_ms']:.4f} ms; {row['int32_ops']} int32 ops "
+                     f"= {row['ops_ms']:.4f} ms), {100 * row['share_of_bound']:.1f}% of the bound; "
+                     "library_ms null — no single PyTorch call computes this function")
+        say(line)
+        del args, kw, got, want
+    return row
+
+
+def _shard_timeline(name, n, device):
+    """Phase 37's timelines: (plan, member killed up front, knob point)."""
+    from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
+    from scalecube_cluster_tpu_torch.sim.schedule import ScheduleBuilder
+
+    if name == "scheduled":
+        return (
+            ScheduleBuilder(n).add_segment(0, FaultPlan.uniform(5.0, device=device))
+            .kill(3, 7).kill(5, n // 2 + 3).kill(6, 900).restart(21, 7).restart(30, 900)
+            .build()
+        ), None, None
+    return FaultPlan.uniform(device=device), 7, (1.5, 2) if name == "knobbed" else None
+
+
+def _shard_params(n, s, pallas):
+    """Compressed cadences (the reference's testlib/certify.py): FD every
+    5 ticks, SYNC every 30, suspicion 20."""
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from scalecube_cluster_tpu_torch.sim.sparse import SparseParams
+
+    base = dataclasses.replace(SimParams.from_cluster_config(n), fd_period_ticks=5,
+                               sync_period_ticks=30, suspicion_ticks=20)
+    return SparseParams(base=base, slot_budget=s, pallas_core=pallas)
+
+
+def _shard_run(torch, name, n, s, d, ticks, device, pallas, sharded=True, trace=0):
+    from scalecube_cluster_tpu_torch.parallel import mesh as shard_mesh
+    from scalecube_cluster_tpu_torch.parallel import spmd
+    from scalecube_cluster_tpu_torch.sim import sparse as sparse_mod
+    from scalecube_cluster_tpu_torch.sim.knobs import make_knobs
+
+    plan, killed, knobs = _shard_timeline(name, n, device)
+    params = _shard_params(n, s, pallas)
+    st = sparse_mod.init_sparse_full_view(n, s, seed=3, trace_capacity=trace,
+                                          trace_shards=d if trace else 0, device=device)
+    if killed is not None:
+        st = sparse_mod.kill_sparse(st, killed)
+    kn = None if knobs is None else make_knobs(params.base, *knobs, device=device)
+    if sharded:
+        return spmd.run_sparse_ticks_spmd(params, spmd.ShardConfig(d), shard_mesh.make_mesh(d),
+                                          st, plan, ticks, knobs=kn)
+    return sparse_mod.run_sparse_ticks(params, st, plan, ticks, knobs=kn)
+
+
+def phase_shard_card_vs_cpu(torch):
+    """Phase 37: the sharded engine at n=1024, S=256, d=4, card vs CPU and
+    card vs the single-device engine, both core routes, three timelines;
+    a traced XLA-core run merged and walked."""
+    from scalecube_cluster_tpu_torch.obs.trace import TK_VERDICT_DEAD, merge_shard_rings
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.tools.trace_explain import check_c6, explain_verdict
+
+    n, s, d, ticks = 1024, 256, 4, 40
+    kernel_launches = 0
+    for pallas in (True, False):
+        route = "kernel route" if pallas else "XLA core"
+        for name in ("clean", "scheduled", "knobbed"):
+            before = sparse_core.launches
+            card, card_tr = _shard_run(torch, name, n, s, d, ticks, "cuda", pallas)
+            torch.cuda.synchronize()
+            launched = sparse_core.launches - before
+            kernel_launches += launched
+            if launched != (ticks if pallas else 0):
+                fail(f"[37] {route} {name}: sparse_core launched {launched} times in {ticks} "
+                     "ticks")
+            cpu, cpu_tr = _shard_run(torch, name, n, s, d, ticks, "cpu", pallas)
+            cards = [(_flat_state(card), {k: v.cpu().numpy() for k, v in card_tr.items()})]
+            _compare_runs(f"[37] {route} {name} card vs CPU", cards,
+                          [(_flat_state(cpu), {k: v.numpy() for k, v in cpu_tr.items()})])
+            # The single-device tick refuses knobs on its kernel route.
+            single, single_tr = _shard_run(torch, name, n, s, d, ticks, "cuda",
+                                           pallas and name != "knobbed", sharded=False)
+            _compare_runs(f"[37] {route} {name} sharded vs single-device", cards,
+                          [(_flat_state(single), {k: v.cpu().numpy()
+                                                  for k, v in single_tr.items()})])
+            say(f"[37] sharded d={d} n={n} S={s} {route}, {name}: card == CPU and == the "
+                f"single-device engine on the card ({len(cards[0][0])} leaves, "
+                f"{len(cards[0][1])} trace keys); sparse_core launches {launched}; "
+                f"verdicts_dead {int(card_tr['verdicts_dead'].sum())}, exchange_overflow "
+                f"{int(card_tr['exchange_overflow'].sum())}")
+    traced, _ = _shard_run(torch, "scheduled", n, s, d, ticks, "cuda", False, trace=1 << 16)
+    traced_cpu, _ = _shard_run(torch, "scheduled", n, s, d, ticks, "cpu", False, trace=1 << 16)
+    _compare_runs("[37] traced card vs CPU", [(_flat_state(traced), None)],
+                  [(_flat_state(traced_cpu), None)])
+    merged = merge_shard_rings(traced.trace)
+    bad = check_c6(merged)
+    deads = [e for e in merged if e["kind"] == TK_VERDICT_DEAD]
+    cross = sum(any(c["shard"] != ev["shard"] for c in explain_verdict(merged, ev)["chain"])
+                for ev in deads)
+    if bad or not deads or not cross:
+        fail(f"[37] merged trace: {len(bad)} C6 violations, {len(deads)} DEAD verdicts, "
+             f"{cross} cross-shard chains")
+    say(f"[37] traced d={d} XLA-core run card == CPU (every ring field); merge_shard_rings: "
+        f"{len(merged)} events, {len(deads)} DEAD verdicts all walk back (C6 clean), "
+        f"{cross} of them across shards")
+    return kernel_launches
+
+
+def _state_differs(torch, a, b):
+    """The first leaf on which two states differ (compared on the device),
+    or None."""
+    import numpy as np
+
+    for fld in dataclasses.fields(a):
+        x, y = getattr(a, fld.name), getattr(b, fld.name)
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y):
+                return fld.name
+        elif (x is None) != (y is None) or (
+                x is not None and not np.array_equal(np.asarray(x), np.asarray(y))):
+            return fld.name
+    return None
+
+
+def phase_shard_map_path(torch, n=32768, d=8, chunk=48, reps=4, device="cuda"):
+    """Phase 38: the sharded path at width — ``--shard-map 8 32768
+    --pallas`` interleaved with the single-device engine at the same
+    parameters (the arguments shrink it for a rehearsal)."""
+    from scalecube_cluster_tpu_torch.bench import shard_map_session
+    from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
+    from scalecube_cluster_tpu_torch.parallel import spmd
+    from scalecube_cluster_tpu_torch.sim import sparse as sparse_mod
+
+    _free_earlier_phases(torch)
+    reset_counts()
+    t0 = time.perf_counter()
+    params, cfg, mesh, state, plan = shard_map_session(d, n, pallas=True, chunk=chunk,
+                                                       device=device)
+    warm_s = time.perf_counter() - t0
+    sharded_launches = read_counts()["sparse_core"]
+    peak_sharded = torch.cuda.max_memory_allocated() / 2**30
+    single = sparse_mod.kill_sparse(
+        sparse_mod.init_sparse_full_view(n, params.slot_budget, device=device), 7)
+    single, _ = sparse_mod.run_sparse_ticks(params, single, plan, chunk, collect=False)
+    int(single.view_T[0, 0])
+    shard_ms, single_ms = [], []
+    for _ in range(reps):
+        before = sparse_core.launches
+        t0 = time.perf_counter()
+        state, _ = spmd.run_sparse_ticks_spmd(params, cfg, mesh, state, plan, chunk,
+                                              collect=False)
+        int(state.view_T[0, 0])
+        shard_ms.append((time.perf_counter() - t0) * 1e3 / chunk)
+        sharded_launches += sparse_core.launches - before
+        t0 = time.perf_counter()
+        single, _ = sparse_mod.run_sparse_ticks(params, single, plan, chunk, collect=False)
+        int(single.view_T[0, 0])
+        single_ms.append((time.perf_counter() - t0) * 1e3 / chunk)
+    expect = (reps + 1) * chunk
+    if sharded_launches != expect:
+        fail(f"[38] sparse_core launched {sharded_launches} times on the sharded path, "
+             f"expected {expect} (one a tick for all {d} shards)")
+    box = {}
+
+    def shard_ticks():
+        box["state"], _ = spmd.run_sparse_ticks_spmd(params, cfg, mesh, state, plan, 4,
+                                                     collect=False)
+
+    syncs = _sync_calls(torch, shard_ticks)
+    state = box["state"]
+    single, _ = sparse_mod.run_sparse_ticks(params, single, plan, 4, collect=False)
+    state, tr = spmd.run_sparse_ticks_spmd(params, cfg, mesh, state, plan, 4)
+    single, single_tr = sparse_mod.run_sparse_ticks(params, single, plan, 4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    differ = _state_differs(torch, state, single)
+    if differ:
+        fail(f"[38] sharded and single-device final states differ on {differ}")
+    for k, v in single_tr.items():
+        if not torch.equal(v, tr[k]):
+            fail(f"[38] sharded and single-device trace {k} differ")
+    if int(tr["exchange_overflow"].sum()):
+        fail("[38] the lossless exchange dropped blocks")
+    shard_tick = sum(shard_ms) / reps
+    single_tick = sum(single_ms) / reps
+    row = {
+        "n": n, "shards": d, "S": params.slot_budget, "chunk": chunk, "timed_ticks": reps * chunk,
+        "ms_per_tick": shard_tick, "chunk_ms_per_tick": shard_ms,
+        "member_rounds_per_s": n * 1e3 / shard_tick,
+        "single_ms_per_tick": single_tick, "single_chunk_ms_per_tick": single_ms,
+        "peak_gib_sharded_alone": peak_sharded, "peak_gib_both": peak,
+        "launches": sharded_launches, "launches_per_tick": sharded_launches / expect,
+        "sync_calls_per_tick": syncs / 4,
+        "exchange_bytes_per_tick": spmd.exchange_payload_bytes_per_tick(params, cfg)[
+            "total_bytes"],
+        "bucket_groups": spmd._bucket_cap(params, cfg), "warm_up_s": warm_s,
+    }
+    say(f"[38] --shard-map {d} {n} --pallas: {shard_tick:.3f} ms/tick "
+        f"({', '.join(f'{v:.3f}' for v in shard_ms)}), {row['member_rounds_per_s']:.1f} "
+        f"member·rounds/s; single-device engine interleaved {single_tick:.3f} ms/tick "
+        f"({', '.join(f'{v:.3f}' for v in single_ms)}); sparse_core {sharded_launches} launches "
+        f"in {expect} ticks (one a tick for {d} shards); {syncs / 4:.2f} synchronising calls a "
+        f"tick; peak {peak_sharded:.3f} GiB sharded alone, {peak:.3f} GiB with the single-device "
+        f"state; exchange {row['exchange_bytes_per_tick']} B a tick a shard "
+        f"(bucket_groups {row['bucket_groups']}); final state and 4 collected ticks bit-equal "
+        "to the single-device engine; exchange_overflow 0")
+    say("[38] row " + json.dumps(row))
+    return sharded_launches, row
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None,
-                  batched=None):
+                  batched=None, shard_mode=None):
     entry = {
         "name": name,
         "route": "cuda",
@@ -3049,6 +3354,8 @@ def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=Non
     }
     if batched:
         entry["batched"] = batched
+    if shard_mode:
+        entry["shard_mode"] = shard_mode
     return entry
 
 
@@ -3101,6 +3408,11 @@ def main() -> int:
     fleet_launches, _ = phase_fleet_main_path(torch)
     fleet_grow_launches, _ = phase_fleet_promotion(torch)
     fleet_load_launches, _ = phase_fleet_load(torch)
+    shard_row = phase_shard_core_vs_plain(torch)
+    shard_card_launches = phase_shard_card_vs_cpu(torch)
+    shard_launches, shard_path_row = phase_shard_map_path(torch)
+    shard_row["launches"] = shard_launches
+    shard_row["path_ms_per_tick"] = shard_path_row["ms_per_tick"]
 
     kernels = {
         "kernels": [
@@ -3109,7 +3421,7 @@ def main() -> int:
                 "scalecube_cluster_tpu/ops/pallas_sparse.py:444",
                 sparse_launches + sched_sparse_launches + elastic_launches + ens_launches
                 + serve_card_launches + serve_launches + grow_launches + fleet_card_launches
-                + fleet_launches + fleet_grow_launches,
+                + fleet_launches + fleet_grow_launches + shard_card_launches + shard_launches,
                 core_rows[(32768, 512)],
                 ["[3] kernel vs plain", "[4] card vs CPU", "[5] main path",
                  "[15] timelines card vs CPU", "[16] scheduled path",
@@ -3119,7 +3431,11 @@ def main() -> int:
                  "[27] serving card vs CPU", "[28] serving main path",
                  "[29] elastic serving path", "[31] fleet card vs CPU",
                  "[32] fleet main path", "[33] elastic fleet with promotion",
-                 "[34] fleet load harness"],
+                 "[34] fleet load harness",
+                 "[36] shard mode vs plain and vs one launch a shard (d=8 x 32768 x 512, "
+                 "B=2 x d=4 x 1024 x 256, tile edges at S = 128, 384)",
+                 "[37] sharded engine card vs CPU and vs single-device",
+                 "[38] sharded path at width"],
                 {"[5] main path": sparse_launches, "[16] scheduled path": sched_sparse_launches,
                  "[19] elastic path": elastic_launches, "[23] sparse ensemble path": ens_launches,
                  "[22] ensemble card vs CPU (card side)": ens_card_launches,
@@ -3129,8 +3445,12 @@ def main() -> int:
                  "[31] fleet card vs CPU (card side)": fleet_card_launches,
                  "[32] fleet main path": fleet_launches,
                  "[33] elastic fleet with promotion": fleet_grow_launches,
-                 "[34] fleet load harness (not in the total)": fleet_load_launches},
+                 "[34] fleet load harness (not in the total)": fleet_load_launches,
+                 "[37] sharded engine card vs CPU (card side, kernel route)":
+                     shard_card_launches,
+                 "[38] sharded path at width": shard_launches},
                 batched=batched_rows["sparse_core"],
+                shard_mode=shard_row,
             ),
             _kernel_entry(
                 "tick_core", "scalecube_cluster_tpu_torch/csrc/tick_core.cu",

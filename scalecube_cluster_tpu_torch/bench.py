@@ -62,6 +62,20 @@ row (:func:`measure_load`). Each takes the reference's defaults; the
 measuring functions also take ``pallas_core``, ``slot_budget``,
 ``batch_ticks`` and ``capacity`` as keywords.
 
+Sharded (``bench.py::_measure_shard_map``, ``--shard-map d [n] [--pallas]``,
+default n=32768): the explicit-SPMD engine (parallel/spmd.py) over ``d``
+member shards, all on this card, with ``SparseParams.for_n(n,
+in_scan_writeback=True, slot_budget=rung_slot_budget(n))`` (the sharded
+engine frees slots inside the tick), ``pallas_core`` from ``--pallas`` (the
+sparse core's shard mode, one launch a tick for all shards), member 7
+killed, ``FaultPlan.uniform(5.0)``, one warm-up and ``reps`` timed 48-tick
+chunks (collect=False); the row carries the reference's exchange fields
+(``shards``, ``bucket_groups``, ``exchange_rounds``,
+``exchange_bytes_per_tick``) beside ms/tick, peak device memory and the
+kernel launches (:func:`measure_shard_map`); ``--profile`` gives its
+device breakdown beside the single-device engine's at the same parameters
+(:func:`profile_shard_map`).
+
 Run on a CUDA card: ``python -m scalecube_cluster_tpu_torch.bench
 [--engine sparse|dense] [n] [S] [--runs K]`` (or ``--geo [n]``, or
 ``--tracer-overhead [n] [S]``, ``--fleet [B] [n]``, ``--telemetry [out] [n]``)
@@ -90,6 +104,8 @@ from scalecube_cluster_tpu_torch.obs.trace import ring_overflow
 from scalecube_cluster_tpu_torch.ops import sparse_persistent
 from scalecube_cluster_tpu_torch.ops.sparse_core import sparse_core
 from scalecube_cluster_tpu_torch.ops.tick_core import tick_core
+from scalecube_cluster_tpu_torch.parallel import mesh as shard_mesh
+from scalecube_cluster_tpu_torch.parallel import spmd
 from scalecube_cluster_tpu_torch.sim import state as dense
 from scalecube_cluster_tpu_torch.sim.ensemble import (
     init_ensemble_dense,
@@ -179,6 +195,91 @@ def measure_sparse(n: int = 32768, slot_budget: int = 512, chunk: int = 48, reps
         "launches": sparse_core.launches - launches0,
     }
     return row, state
+
+
+def shard_map_session(d: int, n: int = 32768, pallas: bool = False, chunk: int = 48,
+                      device="cuda"):
+    """The ``--shard-map`` rung's set-up: ``(params, cfg, mesh, state,
+    plan)`` after one warm-up chunk of the sharded engine. ``state`` is the
+    global state (its sharded leaves are views of it)."""
+    params = SparseParams.for_n(n, in_scan_writeback=True, slot_budget=rung_slot_budget(n),
+                                pallas_core=pallas)
+    cfg = spmd.ShardConfig(d=d)
+    mesh = shard_mesh.make_mesh(d)
+    state = kill_sparse(init_sparse_full_view(n, params.slot_budget, device=device), 7)
+    plan = FaultPlan.uniform(loss_percent=5.0, device=device)
+    state, _ = spmd.run_sparse_ticks_spmd(params, cfg, mesh, state, plan, chunk, collect=False)
+    int(state.view_T[0, 0])
+    return params, cfg, mesh, state, plan
+
+
+def measure_shard_map(d: int, n: int = 32768, pallas: bool = False, chunk: int = 48,
+                      reps: int = 4) -> tuple[dict, SparseState]:
+    """The ``--shard-map d [n] [--pallas]`` rung (the reference's
+    ``bench.py::_measure_shard_map``): :func:`shard_map_session`, then
+    ``reps`` timed chunks, each ending in a fetch from ``view_T``. Returns
+    ``(row, state)``; the row adds ``ms_per_tick``, each chunk's, the peak
+    device memory and the ``sparse_core`` launches (warm-up included)."""
+    launches0 = sparse_core.launches
+    torch.cuda.reset_peak_memory_stats()
+    params, cfg, mesh, state, plan = shard_map_session(d, n, pallas, chunk)
+    per_chunk = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        state, _ = spmd.run_sparse_ticks_spmd(params, cfg, mesh, state, plan, chunk,
+                                              collect=False)
+        int(state.view_T[0, 0])
+        per_chunk.append(time.perf_counter() - t0)
+    dt = sum(per_chunk)
+    value = n * reps * chunk / dt
+    row = {
+        "metric": "member_gossip_rounds_per_sec",
+        "value": value,
+        "unit": "member·rounds/s",
+        "vs_baseline": value / BASELINE_MEMBER_ROUNDS_PER_SEC,
+        "n_members": n,
+        "engine": "sparse-shard-map-pallas" if pallas else "sparse-shard-map",
+        "slot_budget": params.slot_budget,
+        "shards": d,
+        "bucket_groups": spmd._bucket_cap(params, cfg),
+        "exchange_rounds": spmd.exchange_rounds_per_tick(),
+        "exchange_bytes_per_tick": spmd.exchange_payload_bytes_per_tick(params, cfg)[
+            "total_bytes"],
+        "chunk": chunk,
+        "timed_ticks": reps * chunk,
+        "ms_per_tick": dt * 1e3 / (reps * chunk),
+        "chunk_ms_per_tick": [c * 1e3 / chunk for c in per_chunk],
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": sparse_core.launches - launches0,
+    }
+    return row, state
+
+
+def profile_shard_map(d: int, n: int = 32768, pallas: bool = True, ticks: int = 48,
+                      chunk: int = 48) -> dict:
+    """Where the ``--shard-map`` path's time goes on the card, beside the
+    single-device engine at the same parameters (``in_scan_writeback``,
+    the same core route): after one warm-up chunk of each, the same
+    ``ticks`` ticks from one snapshot, untraced and traced
+    (:func:`_device_profile`)."""
+    params, cfg, mesh, state, plan = shard_map_session(d, n, pallas, chunk)
+    states = [state, _clone_state(state)]
+
+    def sharded(i):
+        spmd.run_sparse_ticks_spmd(params, cfg, mesh, states[i], plan, ticks, collect=False)
+
+    row = {"n": n, "shards": d, "slot_budget": params.slot_budget, "pallas": pallas,
+           "first_tick": state.t_host + 1, "sharded": _device_profile(sharded, ticks)}
+    del states, state
+    single = kill_sparse(init_sparse_full_view(n, params.slot_budget, device="cuda"), 7)
+    single, _ = run_sparse_ticks(params, single, plan, chunk, collect=False)
+    singles = [single, _clone_state(single)]
+
+    def one_device(i):
+        run_sparse_ticks(params, singles[i], plan, ticks, collect=False)
+
+    row["single"] = _device_profile(one_device, ticks)
+    return row
 
 
 def _clone_state(state: SparseState) -> SparseState:
@@ -935,6 +1036,11 @@ def main(argv) -> int:
     ap.add_argument("--fleet", type=int, nargs="*", default=None, metavar="B N",
                     help="the multi-tenant fleet rung: B tenants (default 4) of N members "
                     "(default 1024)")
+    ap.add_argument("--shard-map", type=int, nargs="+", default=None, metavar="D",
+                    help="the explicit-SPMD rung: D member shards [of N members, default "
+                    "32768] on this card")
+    ap.add_argument("--pallas", action="store_true",
+                    help="--shard-map only: the sparse core's shard-mode kernel")
     ap.add_argument("--telemetry", nargs="*", default=None, metavar="OUT N",
                     help="the telemetry export: OUT (default telemetry.jsonl), N members "
                     "(default 4096)")
@@ -950,6 +1056,14 @@ def main(argv) -> int:
 
     if args.geo is not None:
         emit("bench_geo", measure_geo(args.geo))
+        return 0
+    if args.shard_map is not None:
+        d = args.shard_map[0]
+        n = args.shard_map[1] if len(args.shard_map) > 1 else 32768
+        if args.profile:
+            emit("bench_shard_map_profile", profile_shard_map(d, n, pallas=args.pallas))
+        else:
+            emit("bench_shard_map", measure_shard_map(d, n, pallas=args.pallas)[0])
         return 0
     if args.ensemble is not None:
         b_count = args.ensemble[0]

@@ -3,7 +3,9 @@
 // Replaces the TPU kernel scalecube_cluster_tpu/ops/pallas_sparse.py::
 // sparse_core_pallas (body _kernel_factory, helpers pack_flags / pack_slots
 // and ops/pallas_tick.py::_merge_rows) with the full residual fold
-// {countdown, points, wb_mask, view_rows} and no shard mode. Its plain
+// {countdown, points, wb_mask, view_rows} and its shard mode (the
+// explicit-SPMD engine's per-shard launch, pallas_sparse.py:114-139,
+// :323-325, :365-379; see "Shard mode" below). Its plain
 // PyTorch twin is scalecube_cluster_tpu_torch/ops/sparse_core.py::
 // sparse_core_reference; the two agree bit for bit.
 //
@@ -71,6 +73,17 @@
 //     the [N] vector it fills with -1. Both are exact in any order. CTAs
 //     of 2 or 4 row blocks, with a half or a quarter of the atomics, were
 //     no faster at the main path's shape: the atomics are not what costs.
+//
+// Shard mode (parallel/spmd.py, all shards and universes in one launch,
+// grid.z = B * shards): each z is one shard's [nl, S] block, with its own
+// row_base[z] (the global member id of its row 0: own lanes are found on
+// global ids) and its own caller-built sender windows, [W, S] int32 and
+// int8 at 64-bit offsets, read where the single-device kernel reads the
+// sender rows of the block (ginv indexes their 32-row blocks). Window rows
+// are not rows of the block, so no point lane reaches them: with windows
+// the point fold is off, and the receiver's FD / SYNC lanes only mark its
+// point cells for the countdown (the caller applied the updates). The
+// bound adds the window reads, at most W x S x 5 bytes a shard.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -209,16 +222,23 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
     const uint8_t* __restrict__ edge_ok, const uint8_t* __restrict__ alive,
     const int32_t* __restrict__ fd_slot, const int32_t* __restrict__ sy_slot,
     const int32_t* __restrict__ fd_key, const int32_t* __restrict__ sy_key,
-    int32_t* __restrict__ slab2, int8_t* __restrict__ age2, int16_t* __restrict__ susp2,
-    int32_t* __restrict__ self_rumor, int32_t* __restrict__ aggr, int n, int s, int f,
-    Consts k) {
+    const int32_t* __restrict__ win_slab, const int8_t* __restrict__ win_age,
+    const int32_t* __restrict__ row_base, int32_t* __restrict__ slab2,
+    int8_t* __restrict__ age2, int16_t* __restrict__ susp2, int32_t* __restrict__ self_rumor,
+    int32_t* __restrict__ aggr, int n, int s, int f, int win_rows, Consts k) {
   const int fan = kF > 0 ? kF : f;
   const int blk = blockIdx.x;
   const int nb = gridDim.x;
+  // The point lanes fold in only where the senders are the block's rows.
+  const bool points = win_slab == slab;
+  int rb = 0;  // global member id of the block's row 0
   {
-    // This CTA's universe.
+    // This CTA's universe (or shard).
     const size_t u = blockIdx.z;
     const size_t cells = u * (size_t)n * (size_t)s;
+    win_slab += u * (size_t)win_rows * (size_t)s;
+    win_age += u * (size_t)win_rows * (size_t)s;
+    if (row_base != nullptr) rb = row_base[u];
     slab += cells;
     age += cells;
     susp += cells;
@@ -253,7 +273,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
     const int c = i / kGroup;
     const int r = i % kGroup;
     const int src = (int)swim::window_row(kGroup, ginv[c * nb + blk], rots[c * nb + blk], r);
-    s_send[r][c] = make_int4(src, fd_slot[src], sy_slot[src], edge_ok[c * n + row0 + r]);
+    s_send[r][c] = make_int4(src, points ? fd_slot[src] : -1, points ? sy_slot[src] : -1,
+                             edge_ok[c * n + row0 + r]);
   }
   if (threadIdx.x < kGroup) {
     const int row = row0 + threadIdx.x;
@@ -272,7 +293,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
     subj[q] = q < nv ? slot_subj[j0 + q] : -1;
     active[q] = subj[q] >= 0;
     any_active |= active[q];
-    own_rows |= active[q] && (unsigned)(subj[q] - row0) < (unsigned)kGroup;
+    own_rows |= active[q] && (unsigned)(subj[q] - (rb + row0)) < (unsigned)kGroup;
   }
   int bits[kQ] = {0, 0, 0, 0};
 
@@ -291,7 +312,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
 #pragma unroll
           for (int c = 0; c < kF; ++c) {
             const int4 snd = s_send[r][c];
-            if (snd.w) load_band<kVec>(slab, age, snd.x * s + j0, nv, keep, w[c], wa[c]);
+            if (snd.w) load_band<kVec>(win_slab, win_age, snd.x * s + j0, nv, keep, w[c], wa[c]);
           }
 #pragma unroll
           for (int c = 0; c < kF; ++c) {
@@ -305,7 +326,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
             if (!snd.w) continue;
             int w[kQ];
             uint32_t wa;
-            load_band<kVec>(slab, age, snd.x * s + j0, nv, keep, w, wa);
+            load_band<kVec>(win_slab, win_age, snd.x * s + j0, nv, keep, w, wa);
             deliver(w, wa, snd, j0, fd_key, sy_key, k.spread, best_any, best_alive);
           }
         }
@@ -324,7 +345,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
       bool own_here = false;
       if (own_rows) {
 #pragma unroll
-        for (int q = 0; q < kQ; ++q) own_here |= subj[q] == row;
+        for (int q = 0; q < kQ; ++q) own_here |= subj[q] == rb + row;
       }
       int key[kQ], a2[kQ], s2[kQ];
       if (d_fd >= kQ && d_sy >= kQ && !own_here && alive_row) {
@@ -338,16 +359,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) sparse_core_kernel(
           int local = v[q];
           int a0 = a[q];
           bool point = false;
-          if (d_sy == (unsigned)q) {
-            local = sy_key[row];
-            a0 = 0;
+          if (d_sy == (unsigned)q || d_fd == (unsigned)q) {
             point = true;
-          } else if (d_fd == (unsigned)q) {
-            local = fd_key[row];
-            a0 = 0;
-            point = true;
+            if (points) {
+              local = d_sy == (unsigned)q ? sy_key[row] : fd_key[row];
+              a0 = 0;
+            }
           }
-          const bool own = subj[q] == row;
+          const bool own = subj[q] == rb + row;
           int ba = best_any[q];
           int bal = best_alive[q];
           if (own) {
@@ -380,44 +399,54 @@ template <int kF, bool kVec>
 void launch(dim3 grid, cudaStream_t stream, const void* slab, const void* age,
             const void* susp, const void* slot_subj, const void* ginv, const void* rots,
             const void* edge_ok, const void* alive, const void* fd_slot, const void* sy_slot,
-            const void* fd_key, const void* sy_key, void* slab2, void* age2, void* susp2,
-            void* self_rumor, void* aggr, int n, int s, int f, Consts k) {
+            const void* fd_key, const void* sy_key, const void* win_slab, const void* win_age,
+            const void* row_base, void* slab2, void* age2, void* susp2, void* self_rumor,
+            void* aggr, int n, int s, int f, int win_rows, Consts k) {
   sparse_core_kernel<kF, kVec><<<grid, kThreads, 0, stream>>>(
       (const int32_t*)slab, (const int8_t*)age, (const int16_t*)susp,
       (const int32_t*)slot_subj, (const int32_t*)ginv, (const int32_t*)rots,
       (const uint8_t*)edge_ok, (const uint8_t*)alive, (const int32_t*)fd_slot,
       (const int32_t*)sy_slot, (const int32_t*)fd_key, (const int32_t*)sy_key,
+      (const int32_t*)win_slab, (const int8_t*)win_age, (const int32_t*)row_base,
       (int32_t*)slab2, (int8_t*)age2, (int16_t*)susp2, (int32_t*)self_rumor,
-      (int32_t*)aggr, n, s, f, k);
+      (int32_t*)aggr, n, s, f, win_rows, k);
 }
 
 }  // namespace
 
 // Fills ``self_rumor`` with -1 and zeroes ``aggr`` on ``stream``, then
 // launches the kernel there on an (n/32 row blocks, lane tiles, b
-// universes) grid; every operand holds b universes back to back.
+// universes) grid; every operand holds b universes back to back. The
+// sender rows come from ``win_slab`` / ``win_age`` (``win_rows`` rows a
+// universe; the slab and age themselves outside shard mode); ``row_base``
+// is null or ``[b]`` int32. Windows other than the slab leave the point
+// lanes unapplied.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int sparse_core_launch(
     const void* slab, const void* age, const void* susp, const void* slot_subj,
     const void* ginv, const void* rots, const void* edge_ok, const void* alive,
     const void* fd_slot, const void* sy_slot, const void* fd_key,
-    const void* sy_key, void* slab2, void* age2, void* susp2, void* self_rumor,
-    void* aggr, int n, int s, int f, int b, int spread, int susp_ticks,
-    int age_stale, int sweep, void* stream) {
+    const void* sy_key, const void* win_slab, const void* win_age, const void* row_base,
+    void* slab2, void* age2, void* susp2, void* self_rumor, void* aggr, int n, int s,
+    int f, int b, int win_rows, int spread, int susp_ticks, int age_stale,
+    int sweep, void* stream) {
   if (n <= 0 || n % kGroup != 0 || s <= 0 || f > kMaxFanout || f < 1 ||
-      (long long)n * s >= (1LL << 31) || b < 1 || b > 65535)
+      (long long)n * s >= (1LL << 31) || b < 1 || b > 65535 || win_rows < kGroup ||
+      win_rows % kGroup != 0 || (long long)win_rows * s >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaMemsetAsync(self_rumor, 0xff, sizeof(int32_t) * n * (size_t)b, st);
   if (err == cudaSuccess) err = cudaMemsetAsync(aggr, 0, sizeof(int32_t) * s * (size_t)b, st);
   if (err != cudaSuccess) return (int)err;
   const bool vec = s % kQ == 0 && aligned(slab, 16) && aligned(slab2, 16) && aligned(age, 4) &&
-                   aligned(age2, 4) && aligned(susp, 8) && aligned(susp2, 8);
+                   aligned(age2, 4) && aligned(susp, 8) && aligned(susp2, 8) &&
+                   aligned(win_slab, 16) && aligned(win_age, 4);
   const dim3 grid(n / kGroup, (s + kTile - 1) / kTile, b);
   const Consts k{spread, susp_ticks, age_stale, sweep};
 #define SPARSE_CORE_ARGS                                                                      \
   grid, st, slab, age, susp, slot_subj, ginv, rots, edge_ok, alive, fd_slot, sy_slot, fd_key, \
-      sy_key, slab2, age2, susp2, self_rumor, aggr, n, s, f, k
+      sy_key, win_slab, win_age, row_base, slab2, age2, susp2, self_rumor, aggr, n, s, f,      \
+      win_rows, k
   if (f == 3 && vec)
     launch<3, true>(SPARSE_CORE_ARGS);
   else if (vec)

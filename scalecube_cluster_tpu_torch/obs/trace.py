@@ -7,9 +7,9 @@ them as JSONL, and renders them, with serving launch spans and transport
 message spans where a caller has them, as Chrome-trace-event JSON that
 Perfetto loads. The event kinds and the ``aux`` vocabulary are wire format,
 equal to the JAX package's. Ring fields may be tensors on any device or
-numpy arrays: they are copied to the host once per decode. The sharded
-recorder's merge (``merge_shard_rings``) waits for the port's
-multi-device engine.
+numpy arrays: they are copied to the host once per decode.
+:func:`merge_shard_rings` merges the explicit-SPMD engine's per-shard
+recorder (obs/tracer.py::ShardTraceRing) into one causally ordered log.
 """
 
 from __future__ import annotations
@@ -114,8 +114,112 @@ def ring_events(ring, kinds=None) -> list[dict]:
 
 def ring_overflow(ring) -> int:
     """Events the bounded ring could not record (lossless accounting:
-    emitted == recorded + overflow, the SHARED_COUNTERS discipline)."""
+    emitted == recorded + overflow, the SHARED_COUNTERS discipline).
+    Sums over shards for a sharded recorder."""
     return int(_host(ring.overflow).sum())
+
+
+# ------------------------------------------------------- sharded-ring merge
+#: Within-tick causal emission order of the sparse engine's event kinds: the
+#: phase a kind is emitted in during one tick (events first, then FD, SYNC,
+#: the verdicts and the user-gossip infection edges). The merge sorts by
+#: (tick, phase, shard, local position), which keeps rewritten causes
+#: pointing backwards across shards; single-device emission follows the
+#: same order, so a d=1 merge is the identity. Kinds not in the table sort
+#: after everything in their tick.
+_PHASE_INJECTED_GOSSIP = 2
+
+
+def _event_phase(kind: int, aux: int) -> int:
+    if kind == TK_GOSSIP_EDGE:
+        return _PHASE_INJECTED_GOSSIP if aux == 1 else 9
+    return {
+        TK_KILL: 0,
+        TK_RESTART: 1,
+        TK_PROBE_SENT: 3,
+        TK_PROBE_MISSED: 4,
+        TK_SUSPECT_START: 5,
+        TK_SYNC_ACCEPT: 6,
+        TK_VERDICT_DEAD: 7,
+        TK_VERDICT_ALIVE: 8,
+    }.get(kind, 10)
+
+
+def _shard_ring_events(ring) -> list[dict]:
+    """Every shard of a sharded recorder decoded into event dicts (``i`` =
+    shard-local ring position, plus a ``shard`` column)."""
+    cursors = _host(ring.cursor)
+    fields = {name: _host(getattr(ring, name)) for name in _RING_FIELDS}
+    out = []
+    for s in range(int(cursors.shape[0])):
+        cols = [fields[name][s, : int(cursors[s])].tolist() for name in _RING_FIELDS]
+        for i, (kind, tick, actor, subject, cause, aux) in enumerate(zip(*cols)):
+            out.append({
+                "i": i,
+                "shard": s,
+                "tick": tick,
+                "kind": kind,
+                "kind_name": TK_NAMES.get(kind, f"kind_{kind}"),
+                "actor": actor,
+                "subject": subject,
+                "cause": cause,
+                "aux": aux,
+            })
+    return out
+
+
+def merge_shard_rings(ring) -> list[dict]:
+    """Merge a sharded recorder (obs/tracer.py::ShardTraceRing) into one
+    causally ordered event log.
+
+    Events sort by ``(tick, phase, shard, local position)`` (stable), take
+    ``i`` = merged position, and every intra-shard ``cause`` is rewritten
+    to its event's merged position. A verdict whose origin was recorded on
+    another shard carries ``cause == -1`` on the device (its shard's origin
+    register never saw the suspicion): a last pass replays the origin
+    register over the merged order (SUSPECT_START sets it, RESTART clears
+    it, an intra-shard verdict cause republishes it, the latest PROBE_SENT
+    about the subject is the direct-probe fallback) and relinks exactly
+    those cross-shard verdicts. Same-shard ``-1`` causes stay, so a d=1
+    merge equals the single-device ring's decode but for the ``shard``
+    column. A plain :class:`TraceRing` passes through with ``shard`` 0."""
+    if _host(ring.cursor).ndim == 0:
+        out = ring_events(ring)
+        for ev in out:
+            ev["shard"] = 0
+        return out
+
+    events = _shard_ring_events(ring)
+    events.sort(key=lambda e: (e["tick"], _event_phase(e["kind"], e["aux"]), e["shard"], e["i"]))
+    pos_map = {(e["shard"], e["i"]): m for m, e in enumerate(events)}
+    merged = []
+    for m, e in enumerate(events):
+        ev = dict(e)
+        ev["i"] = m
+        if ev["cause"] >= 0:
+            ev["cause"] = pos_map.get((ev["shard"], ev["cause"]), -1)
+        merged.append(ev)
+
+    # Relink: the per-subject origin register replayed over the merged log.
+    origin_reg: dict[int, tuple[int, int]] = {}  # subject -> (merged i, shard)
+    last_sent: dict[int, tuple[int, int]] = {}
+    for ev in merged:
+        kind, subj = ev["kind"], ev["subject"]
+        if kind == TK_RESTART:
+            origin_reg.pop(subj, None)
+            last_sent.pop(subj, None)
+        elif kind == TK_PROBE_SENT:
+            last_sent[subj] = (ev["i"], ev["shard"])
+        elif kind == TK_SUSPECT_START:
+            origin_reg[subj] = (ev["i"], ev["shard"])
+        elif kind == TK_VERDICT_DEAD:
+            if ev["cause"] >= 0:
+                origin_reg[subj] = (ev["cause"], merged[ev["cause"]]["shard"])
+            else:
+                hit = origin_reg.get(subj) or last_sent.get(subj)
+                if hit is not None and hit[1] != ev["shard"]:
+                    ev["cause"] = hit[0]
+    return merged
 
 
 def trace_occupancy(ring) -> list[dict]:

@@ -27,8 +27,10 @@ that all are distinct, are rewritten with the values they hold. ``ev_pos``,
 writes the ring's event fields in place: the ring is consumed, as the tick
 consumes the state.
 
-The sharded recorder (``ShardTraceRing``) belongs to the explicit-SPMD
-engine, which the port does not have yet: asking for one raises.
+The sharded recorder (:class:`ShardTraceRing`) belongs to the
+explicit-SPMD engine (parallel/spmd.py): ``d`` rings on a leading shard
+axis, each written by its shard with a shard-local cursor; the host merge
+(obs/trace.py::merge_shard_rings) rebuilds the one global log.
 """
 
 from __future__ import annotations
@@ -121,21 +123,86 @@ def init_trace_ring(n: int, capacity: int, device="cuda") -> TraceRing:
 #: reference's sim/sparse.py check).
 SHARDED_RING_ERROR = (
     "single-device sparse_tick cannot carry a ShardTraceRing — the "
-    "per-shard recorder belongs to the explicit-SPMD engine, which the port "
-    "does not have yet; init with trace_shards=0 for this engine"
+    "per-shard recorder belongs to the explicit-SPMD engine "
+    "(parallel/spmd.py); init with trace_shards=0 for this engine"
 )
 
 
+@dataclass
 class ShardTraceRing:
-    """The explicit-SPMD engine's per-shard recorder: not ported yet."""
+    """Per-shard flight recorder of the explicit-SPMD engine: ``d``
+    independent :class:`TraceRing`\\ s stacked on a leading shard axis
+    (a process running ``dl`` of the ``d`` shards holds their ``dl``
+    rows). Each shard writes its own row through :func:`shard_local_ring`
+    with the single-device emission code; cursors and causes are
+    shard-local, so no collective touches the recorder."""
 
-    def __init__(self, *args, **kwargs):
-        raise ValueError(SHARDED_RING_ERROR)
+    ev_kind: torch.Tensor  # [d, R]
+    ev_tick: torch.Tensor  # [d, R]
+    ev_actor: torch.Tensor  # [d, R]
+    ev_subject: torch.Tensor  # [d, R]
+    ev_cause: torch.Tensor  # [d, R] shard-local ring position, -1 = root
+    ev_aux: torch.Tensor  # [d, R]
+    cursor: torch.Tensor  # [d] per-shard append cursor
+    overflow: torch.Tensor  # [d] per-shard lossless overflow count
+    last_miss: torch.Tensor  # [d, N] per-shard causal register
+    origin: torch.Tensor  # [d, N] per-shard causal register
+
+    def replace(self, **changes) -> "ShardTraceRing":
+        return dataclasses.replace(self, **changes)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.ev_kind.shape[1])
+
+    @property
+    def shards(self) -> int:
+        return int(self.ev_kind.shape[0])
 
 
-def init_shard_trace_rings(n: int, capacity: int, d: int):
-    """Raises: the per-shard recorder belongs to the explicit-SPMD engine."""
-    raise ValueError(SHARDED_RING_ERROR)
+def init_shard_trace_rings(n: int, capacity: int, d: int, device="cuda") -> ShardTraceRing:
+    """``d`` empty per-shard rings for an ``n``-member cluster. Capacity is
+    per shard (``d * capacity`` events in all)."""
+    if capacity < 1:
+        raise ValueError("trace ring capacity must be >= 1")
+    if d < 1:
+        raise ValueError("shard trace ring needs d >= 1 shards")
+
+    def full(shape, v):
+        return torch.full(shape, v, dtype=_I32, device=device)
+
+    return ShardTraceRing(
+        ev_kind=full((d, capacity), 0),
+        ev_tick=full((d, capacity), -1),
+        ev_actor=full((d, capacity), -1),
+        ev_subject=full((d, capacity), -1),
+        ev_cause=full((d, capacity), -1),
+        ev_aux=full((d, capacity), 0),
+        cursor=full((d,), 0),
+        overflow=full((d,), 0),
+        last_miss=full((d, n), -1),
+        origin=full((d, n), -1),
+    )
+
+
+def shard_local_ring(rings: ShardTraceRing, q: int = 0) -> TraceRing:
+    """Row ``q`` of a sharded recorder as a plain :class:`TraceRing` whose
+    fields are views of the rows: :func:`trace_emit` writes its events in
+    place into the stack; the new cursor, overflow and registers go back
+    with :func:`shard_rewrap_ring`."""
+    return TraceRing(**{name: getattr(rings, name)[q] for name in RING_FIELDS})
+
+
+def shard_rewrap_ring(rings: ShardTraceRing, local: list) -> ShardTraceRing:
+    """The inverse of :func:`shard_local_ring` over every row: ``local``
+    holds one ring per row of ``rings``, in order, taken from it with
+    :func:`shard_local_ring` and advanced by the emission code. Their
+    events are already in ``rings`` (written in place through the views);
+    the cursors, overflow counts and registers are stacked again."""
+    return rings.replace(**{
+        name: torch.stack([getattr(r, name) for r in local])
+        for name in ("cursor", "overflow", "last_miss", "origin")
+    })
 
 
 def ring_from_fields(fields, device="cuda") -> TraceRing:

@@ -11,7 +11,9 @@ a bijection per channel (in- and out-degree exactly f). The group is 32
 rows when n % 32 == 0, else 8 — it decides which edges are sampled, so the
 port keeps the reference's choice.
 
-Every function also takes an ensemble's operands (sim/ensemble.py): a
+Every function but :func:`shard_group_routing` (the sharded engine's
+bucket routing, one universe's tables) also takes an ensemble's operands
+(sim/ensemble.py): a
 leading universe axis on the key (a :class:`~..prng.KeyBatch`), the
 compact form (``[B, k, n/group]``), the permutations (``[B, k, n]``), the
 rows and the edge bits; :func:`take_rows` is the batched row gather.
@@ -38,6 +40,32 @@ def structured_fanout_draw(key, n: int, k: int, device, group: int = GROUP):
     ginv = torch.stack([prng.permutation(ks[c], ng, device) for c in range(k)], dim=lead)
     rots = prng.randint(ks[k], (k, ng), 0, group, device)
     return ginv, rots
+
+
+def shard_group_routing(ginv: torch.Tensor, d: int):
+    """Per-destination-shard bucket routing of the structured fan-out (the
+    explicit-SPMD engine's gossip exchange, parallel/spmd.py).
+
+    With ``d`` equal shards each owning ``ngl = ng/d`` contiguous sender
+    groups, sender group ``s`` on channel ``c`` sends its whole block to
+    receiver group ``gfwd[c, s]``, so to exactly one destination shard.
+    Returns ``(dest, rank)``, both ``[k, d, ngl]`` int32: the destination
+    shard of shard q's j-th local group on channel c, and its arrival slot
+    among shard q's channel-c groups bound there (0-based, in group
+    order). ``gfwd[c]`` is a permutation, so a destination receives
+    exactly ``ngl`` groups per channel and a bucket of ``ngl`` never
+    overflows. ``ginv`` rows are permutations, so the argsort has no ties
+    to break."""
+    k, ng = ginv.shape
+    ngl = ng // d
+    if ngl * d != ng:
+        raise ValueError(f"{ng} sender groups not divisible by d={d} shards")
+    gfwd = torch.argsort(ginv.long(), dim=1).to(torch.int32)
+    dest = (gfwd // ngl).reshape(k, d, ngl)
+    onehot = dest[..., None] == torch.arange(d, dtype=torch.int32, device=ginv.device)
+    csum = torch.cumsum(onehot.to(torch.int32), dim=2, dtype=torch.int32)
+    rank = torch.gather(csum, 3, dest[..., None].long())[..., 0] - 1
+    return dest, rank
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,7 @@ version, and the wrapper that picks between them by device.
 
 Port of scalecube_cluster_tpu/ops/pallas_sparse.py::sparse_core_pallas with
 the full residual fold (``countdown``, ``points``, ``wb_mask``,
-``view_rows``) and no shard mode. One pass over the [N, S] working set:
+``view_rows``) and its shard mode. One pass over the [N, S] working set:
 structured fan-out delivery of young records, FD/SYNC point updates on the
 sender windows and the local block, self-rumor extraction, the merge
 lattice, the dead-row freeze, the suspicion countdown / DEAD transition /
@@ -16,6 +16,17 @@ aging, and the per-slot OR aggregate (:data:`AGGR_HOLD_BIT`,
 - :func:`sparse_core` is the wrapper: on CPU tensors it runs the reference;
   on CUDA tensors it launches ``csrc/sparse_core.cu`` and adds one to
   ``sparse_core.launches``, or raises — it never falls back.
+
+Shard mode (the explicit-SPMD engine, parallel/spmd.py): the block is one
+shard's ``[nl, S]`` rows, ``row_base`` gives the global member id of its
+row 0 (own-lane detection works on global ids), and the sender rows come
+from caller-built windows ``slab_windows`` / ``age_windows`` (``[W, S]``
+int32 / int8, W a multiple of 32; ``ginv`` then indexes their 32-row
+blocks) instead of the block itself. Window rows are not rows of the
+block, so the point lanes do not reach them: with windows the point
+updates are not applied (the caller applied them before building the
+windows, as the reference's shard mode requires; the lanes still mark the
+receiver's own point cells for the countdown).
 
 Both take an ensemble's operands too (sim/ensemble.py): every per-universe
 operand with a leading universe axis B (``slab [B, N, S]``, ``slot_subj
@@ -69,7 +80,7 @@ AGGR_DEAD_BIT = 2
 def sparse_core_reference(
     slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
     fd_slot, sy_slot, fd_key, sy_key, *, spread, susp_ticks, age_stale, sweep,
-    group=SPARSE_GROUP, expiry=False,
+    group=SPARSE_GROUP, expiry=False, row_base=None, slab_windows=None, age_windows=None,
 ):
     """Plain PyTorch version of the fused core; same signature and outputs
     as :func:`sparse_core`: ``(slab2 i32, age2 i8, susp2 i16 [N, S],
@@ -87,6 +98,10 @@ def sparse_core_reference(
     ``expiry=True`` appends the [N, S] bool mask of cells whose suspicion
     countdown expired into DEAD this tick (the flight recorder's
     ``DEAD_VIA_EXPIRY``), which the kernel does not expose.
+
+    ``row_base`` (an int, or ``[B]`` int32 for a batch) and the windows are
+    the shard mode of the module docstring: with windows, ``slab``/``age``
+    are taken as given and the lanes only mark the point cells.
     """
     n, s = slab.shape[-2:]
     lanes = torch.arange(s, dtype=torch.int32, device=slab.device)
@@ -94,14 +109,20 @@ def sparse_core_reference(
     cell_fd = lanes == fd_slot[..., None]
     cell_sy = lanes == sy_slot[..., None]
     point = cell_fd | cell_sy
-    local = torch.where(
-        cell_sy, sy_key[..., None], torch.where(cell_fd, fd_key[..., None], slab)
-    )
-    age0 = torch.where(point, 0, age.to(torch.int32))
     active = (slot_subj >= 0)[..., None, :]
-    payload = torch.where((age0 < spread) & active, local, -1)
-
+    if slab_windows is None:
+        local = torch.where(
+            cell_sy, sy_key[..., None], torch.where(cell_fd, fd_key[..., None], slab)
+        )
+        age0 = torch.where(point, 0, age.to(torch.int32))
+        src, src_age = local, age0
+    else:
+        local, age0 = slab, age.to(torch.int32)
+        src, src_age = slab_windows, age_windows.to(torch.int32)
+    payload = torch.where((src_age < spread) & active, src, -1)
     inv = inv_from_structured(ginv, rots, n, group)
+    if row_base is not None:
+        rows = rows + (row_base[..., None] if isinstance(row_base, torch.Tensor) else row_base)
     best_any = torch.full_like(slab, -1)
     best_alive = torch.full_like(slab, -1)
     for c in range(ginv.shape[-2]):
@@ -110,7 +131,7 @@ def sparse_core_reference(
         best_alive = torch.maximum(
             best_alive, torch.where(is_alive_key(contrib), contrib, -1)
         )
-    own = slot_subj[..., None, :] == rows[:, None]
+    own = slot_subj[..., None, :] == rows[..., :, None]
     self_rumor = torch.where(own, best_any, -1).amax(dim=-1)
     best_any = torch.where(own, -1, best_any)
     best_alive = torch.where(own, -1, best_alive)
@@ -204,8 +225,43 @@ def _check_operands(slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
             raise ValueError(f"{name} is on {t.device}, slab on {slab.device}")
 
 
+def _check_shard_mode(slab, row_base, slab_windows, age_windows):
+    """The shard mode's operand checks (the reference's window refusals,
+    pallas_sparse.py:377-396); returns ``row_base`` as ``[B]`` int32 on the
+    slab's device (None without one)."""
+    lead = tuple(slab.shape[:-2])
+    s = slab.shape[-1]
+    if (slab_windows is None) != (age_windows is None):
+        raise ValueError("slab_windows and age_windows must be given together")
+    if slab_windows is not None:
+        if (
+            tuple(slab_windows.shape[:-2]) != lead
+            or slab_windows.shape[-1] != s
+            or slab_windows.shape[-2] % SPARSE_GROUP != 0
+            or tuple(age_windows.shape) != tuple(slab_windows.shape)
+        ):
+            raise ValueError(
+                f"sender windows must be [32m, {s}] pairs, got "
+                f"{tuple(slab_windows.shape)} / {tuple(age_windows.shape)}"
+            )
+        for name, t, dtype in (("slab_windows", slab_windows, torch.int32),
+                               ("age_windows", age_windows, torch.int8)):
+            if t.dtype != dtype or not t.is_contiguous() or t.device != slab.device:
+                raise ValueError(f"{name}: expected contiguous {dtype} on {slab.device}")
+    if row_base is None:
+        return None
+    if not isinstance(row_base, torch.Tensor):
+        return torch.full(lead, int(row_base), dtype=torch.int32, device=slab.device)
+    if row_base.dtype != torch.int32 or tuple(row_base.shape) != lead:
+        raise ValueError(
+            f"row_base: expected an int or int32 {lead}, got {row_base.dtype} "
+            f"{tuple(row_base.shape)}"
+        )
+    return row_base.to(slab.device).contiguous()
+
+
 def _declare(lib: ctypes.CDLL) -> None:
-    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [
+    lib.sparse_core_launch.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p
     ]
     lib.sparse_core_launch.restype = ctypes.c_int
@@ -220,29 +276,40 @@ LIBRARY = CudaLibrary("sparse_core", _declare)
 def sparse_core(
     slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
     fd_slot, sy_slot, fd_key, sy_key, *, spread, susp_ticks, age_stale, sweep,
+    row_base=None, slab_windows=None, age_windows=None,
 ):
-    """The fused sparse tick core (see the module docstring).
+    """The fused sparse tick core (see the module docstring; ``row_base``
+    and the windows are its shard mode).
 
     CPU tensors run :func:`sparse_core_reference`. CUDA tensors launch the
     CUDA kernel on the current stream and count the launch in
     ``sparse_core.launches``; a missing kernel or a refused launch raises.
     Raises ``ValueError`` on a wrong dtype, shape, device or contiguity,
-    on n % 32 != 0, on S >= 4096 and, for CUDA tensors, on n * S >= 2**31
+    on n % 32 != 0, on S >= 4096, on windows of another shape than
+    ``[.., 32m, S]`` and, for CUDA tensors, on
+    n * S >= 2**31 or a window array of 2**31 cells or more
     (:func:`check_offsets`, per universe: a batch's universes are reached
-    through 64-bit offsets).
+    through 64-bit offsets). The kernel reads window block ``ginv[c, j]``
+    without a bounds check: its entries must lie below W / 32.
     """
     args = (slab, age, susp, slot_subj, ginv, rots, edge_ok, alive,
             fd_slot, sy_slot, fd_key, sy_key)
     _check_operands(*args)
+    base = _check_shard_mode(slab, row_base, slab_windows, age_windows)
     consts = dict(spread=spread, susp_ticks=susp_ticks, age_stale=age_stale,
                   sweep=sweep)
     if slab.device.type == "cpu":
-        return sparse_core_reference(*args, **consts)
+        return sparse_core_reference(*args, **consts, row_base=base,
+                                     slab_windows=slab_windows, age_windows=age_windows)
     if slab.device.type != "cuda":
         raise ValueError(f"sparse_core: unsupported device {slab.device}")
     lead = tuple(slab.shape[:-2])
     n, s = slab.shape[-2:]
     check_offsets(n, s)
+    win_slab, win_age, win_rows = slab, age, n
+    if slab_windows is not None:
+        win_slab, win_age, win_rows = slab_windows, age_windows, slab_windows.shape[-2]
+        check_offsets(win_rows, s)
     lib = LIBRARY.load()
     slab2 = torch.empty_like(slab)
     age2 = torch.empty_like(age)
@@ -253,10 +320,11 @@ def sparse_core(
     stream = torch.cuda.current_stream(slab.device).cuda_stream
     err = lib.sparse_core_launch(
         *(t.data_ptr() for t in args),
+        win_slab.data_ptr(), win_age.data_ptr(), base.data_ptr() if base is not None else None,
         slab2.data_ptr(), age2.data_ptr(), susp2.data_ptr(),
         self_rumor.data_ptr(), aggr.data_ptr(),
-        n, s, ginv.shape[-2], lead[0] if lead else 1, spread, susp_ticks, age_stale,
-        sweep, stream,
+        n, s, ginv.shape[-2], lead[0] if lead else 1, win_rows,
+        spread, susp_ticks, age_stale, sweep, stream,
     )
     if err != 0:
         msg = lib.sparse_core_error_string(err).decode()

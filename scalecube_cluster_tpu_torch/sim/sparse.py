@@ -69,6 +69,7 @@ from scalecube_cluster_tpu_torch.obs.counters import SHARED_COUNTERS
 from scalecube_cluster_tpu_torch.obs.trace import DEAD_VIA_EXPIRY, DEAD_VIA_GOSSIP
 from scalecube_cluster_tpu_torch.obs.tracer import (
     SHARDED_RING_ERROR,
+    ShardTraceRing,
     TK_GOSSIP_EDGE,
     TK_JOIN_EV,
     TK_KILL,
@@ -80,6 +81,7 @@ from scalecube_cluster_tpu_torch.obs.tracer import (
     TK_VERDICT_ALIVE,
     TK_VERDICT_DEAD,
     TraceRing,
+    init_shard_trace_rings,
     init_trace_ring,
     trace_emit,
     trace_host_event,
@@ -286,8 +288,9 @@ class SparseState:
     lat_first_dead: torch.Tensor | None = None  # [N] int32
     wb_pinned: torch.Tensor | None = None  # [S] bool
     wb_valid: torch.Tensor | None = None  # [] bool
-    #: Causal flight recorder (obs/tracer.py), None when not armed.
-    trace: TraceRing | None = None
+    #: Causal flight recorder (obs/tracer.py), None when not armed; the
+    #: explicit-SPMD engine's per-shard recorder is a ShardTraceRing.
+    trace: TraceRing | ShardTraceRing | None = None
     #: Elastic membership: True for rows whose identity has ever been live,
     #: False for capacity rows; None on a fixed-shape cluster.
     live_mask: torch.Tensor | None = None  # [N] bool
@@ -318,16 +321,17 @@ def init_sparse_full_view(
     ``record_latency`` attaches the first-suspect / first-dead recorder.
 
     ``trace_capacity > 0`` attaches the causal flight recorder's ring,
-    sized for that many events over the whole run (``trace_shards > 0``,
-    the sharded recorder, raises: it belongs to the explicit-SPMD engine).
+    sized for that many events over the whole run; with ``trace_shards >
+    0`` it is the sharded recorder instead, ``trace_shards`` per-shard
+    rings of ``trace_capacity`` events each (obs/tracer.py::
+    ShardTraceRing), which only the explicit-SPMD engine takes
+    (parallel/spmd.py; ``trace_shards`` must equal its shard count).
 
     ``n_alloc`` (elastic membership): allocate ``n_alloc >= n`` member rows
     with only the first ``n`` live; the rest are capacity rows (dead,
     UNKNOWN along both view axes) that a scheduled join activates. ``None``
     or ``n_alloc == n`` is the fixed-shape state (``live_mask`` None). The
     caller's ``SparseParams`` must be built for ``n_alloc``."""
-    if trace_capacity and trace_shards:
-        raise ValueError(SHARDED_RING_ERROR)
     S = slot_budget
 
     def full(shape, value, dtype):
@@ -373,7 +377,12 @@ def init_sparse_full_view(
         lat_first_dead=full((na,), -1, _I32) if record_latency else None,
         wb_pinned=full((S,), False, torch.bool),
         wb_valid=full((), False, torch.bool),
-        trace=init_trace_ring(na, trace_capacity, device) if trace_capacity else None,
+        trace=(
+            init_shard_trace_rings(na, trace_capacity, trace_shards, device)
+            if trace_capacity and trace_shards
+            else init_trace_ring(na, trace_capacity, device) if trace_capacity
+            else None
+        ),
         live_mask=live,
     )
 
@@ -404,11 +413,23 @@ def kill_sparse(state: SparseState, idx) -> SparseState:
     alive[_members(idx, alive)] = False
     state = _invalidate_wb(state).replace(alive=alive)
     if state.trace is not None:
-        ring = state.trace
+        ring = _host_ring(state)
         for j in np.asarray(idx).ravel().tolist():
             ring = trace_host_event(ring, TK_KILL, state.t_host + 1, -1, int(j))
         state = state.replace(trace=ring)
     return state
+
+
+def _host_ring(state: SparseState) -> TraceRing:
+    """The ring a host op records into; a sharded recorder takes events
+    from the sharded engine's schedule only."""
+    if isinstance(state.trace, ShardTraceRing):
+        raise ValueError(
+            "host ops do not record into a sharded flight recorder "
+            "(ShardTraceRing): schedule the event (ScheduleBuilder) for the "
+            "explicit-SPMD engine instead"
+        )
+    return state.trace
 
 
 def _members(idx, like: torch.Tensor) -> torch.Tensor:
@@ -483,6 +504,7 @@ def restart_many_sparse(state: SparseState, idxs) -> SparseState:
     idx_list = [int(i) for i in np.asarray(idxs).ravel()]
     if not idx_list:
         return state
+    ring = _host_ring(state) if state.trace is not None else None
     state = _invalidate_wb(state)
     if len(set(idx_list)) != len(idx_list):
         raise ValueError("duplicate indices in restart_many_sparse")
@@ -519,8 +541,7 @@ def restart_many_sparse(state: SparseState, idxs) -> SparseState:
         lat_s[ii] = -1
         lat_d[ii] = -1
         state = state.replace(lat_first_suspect=lat_s, lat_first_dead=lat_d)
-    if state.trace is not None:
-        ring = state.trace
+    if ring is not None:
         for j in idx_list:
             ring = trace_host_event(ring, TK_RESTART, state.t_host + 1, -1, j)
         fresh = torch.zeros_like(state.alive)
@@ -581,34 +602,12 @@ def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask
     any_ev = (kill_mask | fresh).any()
     if gossip_mask is not None:
         any_ev = any_ev | gossip_mask.any()
-    new_epoch = torch.where(fresh, torch.clamp_max(state.epoch + 1, EPOCH_MAX), state.epoch)
-    uinf_ids = state.uinf_ids
-    if uinf_ids.shape[2] > 0:
-        hit = (uinf_ids >= 0) & fresh[torch.clamp(uinf_ids, 0, n - 1).long()]
-        uinf_ids = torch.where(hit, -1, uinf_ids)
-        uinf_ids = torch.where(fresh[:, None, None], -1, uinf_ids)
-    st = state.replace(
-        alive=(state.alive & ~kill_mask) | fresh,
-        epoch=new_epoch,
-        inc_self=torch.where(fresh, 0, state.inc_self),
-        # Python scalars keep the planes' int8 / int16 dtypes and, unlike a
-        # CPU tensor operand, need no host-to-device copy.
-        age=torch.where(fresh[:, None], AGE_STALE, state.age),
-        susp=torch.where(fresh[:, None], 0, state.susp),
-        useen=torch.where(fresh[:, None], False, state.useen),
-        uptr=torch.where(fresh[:, None], 0, state.uptr),
-        uinf_ids=uinf_ids,
-    )
+    st = _reset_event_rows(state, kill_mask, fresh, fresh)
     if join_mask is not None and st.live_mask is not None:
         st = st.replace(live_mask=st.live_mask | join_mask)
     if gossip_mask is not None:
         st = st.replace(
             useen=st.useen | gossip_mask, uage=torch.where(gossip_mask, 0, st.uage)
-        )
-    if st.lat_first_suspect is not None:
-        st = st.replace(
-            lat_first_suspect=torch.where(fresh, -1, st.lat_first_suspect),
-            lat_first_dead=torch.where(fresh, -1, st.lat_first_dead),
         )
     if st.wb_valid is not None:
         st = st.replace(wb_valid=st.wb_valid & ~any_ev)
@@ -631,6 +630,40 @@ def apply_events_sparse(state: SparseState, kill_mask, restart_mask, gossip_mask
                 torch.arange(g, dtype=_I32, device=st.device)[None, :], aux=1,
             )
         st = st.replace(trace=ring)
+    return st
+
+
+def _reset_event_rows(state: SparseState, kill, fresh, fresh_all) -> SparseState:
+    """The row resets of a tick's events, on the caller's rows (all ``[n]``,
+    or a shard caller's ``[dl, nl]``): killed rows go down; fresh
+    (restarted or joining) rows come up with a bumped epoch, incarnation 0,
+    stale unarmed cells, no user gossip and no recorded latencies, and
+    leave every suppression ring (``fresh_all``: the ``[n]`` mask by global
+    id)."""
+    n = fresh_all.shape[0]
+    uinf_ids = state.uinf_ids
+    if uinf_ids.shape[-1] > 0:
+        hit = (uinf_ids >= 0) & fresh_all[torch.clamp(uinf_ids, 0, n - 1).long()]
+        uinf_ids = torch.where(hit, -1, uinf_ids)
+        uinf_ids = torch.where(fresh[..., None, None], -1, uinf_ids)
+    rows = fresh[..., None]
+    st = state.replace(
+        alive=(state.alive & ~kill) | fresh,
+        epoch=torch.where(fresh, torch.clamp_max(state.epoch + 1, EPOCH_MAX), state.epoch),
+        inc_self=torch.where(fresh, 0, state.inc_self),
+        # Python scalars keep the planes' int8 / int16 dtypes and, unlike a
+        # CPU tensor operand, need no host-to-device copy.
+        age=torch.where(rows, AGE_STALE, state.age),
+        susp=torch.where(rows, 0, state.susp),
+        useen=torch.where(rows, False, state.useen),
+        uptr=torch.where(rows, 0, state.uptr),
+        uinf_ids=uinf_ids,
+    )
+    if st.lat_first_suspect is not None:
+        st = st.replace(
+            lat_first_suspect=torch.where(fresh, -1, st.lat_first_suspect),
+            lat_first_dead=torch.where(fresh, -1, st.lat_first_dead),
+        )
     return st
 
 
@@ -667,8 +700,8 @@ def _first_true(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 
 
 def _column_writer(cols: torch.Tensor, route: torch.Tensor, width: int):
-    """Prepare ``x.at[:, route].set(v, mode="drop")`` on an [N, width] array
-    as a deterministic in-place column write.
+    """Prepare ``x.at[..., route].set(v, mode="drop")`` on an [..., width]
+    array as a deterministic in-place column write.
 
     ``route[k]`` is entry k's column (``width`` = dropped; kept columns are
     distinct) and ``cols[k]`` is a column in range that equals ``route[k]``
@@ -685,7 +718,7 @@ def _column_writer(cols: torch.Tensor, route: torch.Tensor, width: int):
     cl = cols.long()
 
     def write(x: torch.Tensor, vals: torch.Tensor) -> None:
-        x[:, cl] = torch.where(has, vals[:, kk].to(x.dtype), x[:, cl])
+        x[..., cl] = torch.where(has, vals[..., kk].to(x.dtype), x[..., cl])
 
     return write
 
@@ -701,20 +734,33 @@ def _free_plan(params: SparseParams, state: SparseState):
     reference's cond. Returns ``freeing [S] bool`` (``[B, S]`` for an
     ensemble's stacked state)."""
     p = params.base
-    n = p.n
-    col = torch.arange(n, dtype=_I32, device=state.device)
+    col = torch.arange(p.n, dtype=_I32, device=state.device)
     active = state.slot_subj >= 0
-    own_row = col[:, None] == state.slot_subj[..., None, :]
+    pinned = _holding(p, state, col[:, None] == state.slot_subj[..., None, :]).any(dim=-2)
+    if state.wb_pinned is not None and params.pallas_core and "wb_mask" in params.pallas_fold:
+        pinned = torch.where(state.wb_valid[..., None], state.wb_pinned, pinned)
+    return active & ~pinned
+
+
+def _holding(p: SimParams, state: SparseState, own_row) -> torch.Tensor:
+    """The cells that pin their slot: at a live viewer, a young copy, an
+    armed suspicion, or a DEAD tombstone not yet past the sweep deadline
+    (``own_row``: the subject's own row, which keeps its tombstone)."""
     stale_done = state.age.to(_I32) > p.periods_to_sweep
     holding = (
         (state.age < p.periods_to_spread)
         | (state.susp > 0)
         | (is_dead_key(state.slab) & ~stale_done & ~own_row)
     )
-    pinned = (holding & state.alive[..., None]).any(dim=-2)
-    if state.wb_pinned is not None and params.pallas_core and "wb_mask" in params.pallas_fold:
-        pinned = torch.where(state.wb_valid[..., None], state.wb_pinned, pinned)
-    return active & ~pinned
+    return holding & state.alive[..., None]
+
+
+def _swept_columns(p: SimParams, cols, ages, own_row) -> torch.Tensor:
+    """Freed slab columns as they go back into ``view_T``: tombstones past
+    the sweep deadline demoted to UNKNOWN, except in the subject's own
+    row."""
+    demote = is_dead_key(cols) & (ages.to(_I32) > p.periods_to_sweep) & ~own_row
+    return torch.where(demote, UNKNOWN_KEY, cols)
 
 
 def _write_back(params: SparseParams, state: SparseState, freeing: torch.Tensor):
@@ -728,75 +774,99 @@ def _write_back(params: SparseParams, state: SparseState, freeing: torch.Tensor)
         subj = slot_subj[idx].long()
         cols = state.slab[:, idx]
         col = torch.arange(p.n, dtype=_I32, device=state.device)
-        demote = (
-            is_dead_key(cols)
-            & (state.age[:, idx].to(_I32) > p.periods_to_sweep)
-            & (col[:, None] != slot_subj[idx][None, :])
-        )
-        state.view_T.index_put_((subj,), torch.where(demote, UNKNOWN_KEY, cols).T)
+        own_row = col[:, None] == slot_subj[idx][None, :]
+        state.view_T.index_put_((subj,), _swept_columns(p, cols, state.age[:, idx], own_row).T)
         subj_slot = subj_slot.clone()
         subj_slot[subj] = -1
         slot_subj = torch.where(freeing, -1, slot_subj)
     return slot_subj, subj_slot
 
 
+@dataclass(frozen=True)
+class ShardRows:
+    """The viewer rows one caller of :func:`_fd_decide` / :func:`_sync_fire`
+    owns, in the explicit-SPMD engine (parallel/spmd.py): ``lrow`` their
+    local slab rows (what ``record_of`` takes), ``col`` their global member
+    ids, ``cut`` the slice of a full ``[n, ...]`` draw to those rows (every
+    draw is made at the full shape, so each shard sees the single-device
+    bits), and the all-gathered ``[n]`` member scalars."""
+
+    lrow: torch.Tensor
+    col: torch.Tensor
+    cut: object
+    alive_all: torch.Tensor
+    epoch_all: torch.Tensor
+
+
+def _own_rows(n: int, alive, epoch, shard: ShardRows | None) -> ShardRows:
+    """The single-device caller's rows: all of them, identity cut."""
+    if shard is not None:
+        return shard
+    col = torch.arange(n, dtype=_I32, device=alive.device)
+    return ShardRows(col, col, lambda a: a, alive, epoch)
+
+
 def _fd_decide(p, plan, t, k_tgt, k_ping, k_relay, record_of, alive, epoch, collect,
-               trace=False):
-    """The FD probe decision for every viewer (the reference's shared body,
-    identity cut). Returns ``(tgt, fd_key, fire, msgs)`` plus, under
+               trace=False, shard: ShardRows | None = None):
+    """The FD probe decision for the caller's viewers (the reference's
+    shared body: every viewer with the identity cut, or one shard's rows
+    through ``shard``). Returns ``(tgt, fd_key, fire, msgs)`` plus, under
     ``collect``, ``(pings, ping_reqs, acks)`` and the 4 accounting sums,
-    and under ``trace`` the recorder's ``(probing, missed, gone)`` masks."""
+    and under ``trace`` the recorder's ``(probing, missed, gone)`` masks;
+    the sums are over the caller's rows."""
     n = p.n
     dev = alive.device
-    col = torch.arange(n, dtype=_I32, device=dev)
-    rr_tgt = probe_cursor_targets(t // p.fd_period_ticks, n, dev)
-    rr_key = record_of(col, rr_tgt)
+    rows = _own_rows(n, alive, epoch, shard)
+    lrow, col, cut = rows.lrow, rows.col, rows.cut
+    alive_all, epoch_all = rows.alive_all, rows.epoch_all
+    rr_tgt = cut(probe_cursor_targets(t // p.fd_period_ticks, n, dev))
+    rr_key = record_of(lrow, rr_tgt)
     rr_valid = (rr_tgt != col) & (rr_key >= 0) & ((rr_key & DEAD_BIT) == 0)
-    rand_tgt = prng.randint(k_tgt, (n,), 0, n, dev)
+    rand_tgt = cut(prng.randint(k_tgt, (n,), 0, n, dev))
     tgt = torch.where(rr_valid, rr_tgt, rand_tgt)
     tgt_l = tgt.long()
-    vkey = record_of(col, tgt)
+    vkey = record_of(lrow, tgt)
     valid = (tgt != col) & (vkey >= 0) & ((vkey & DEAD_BIT) == 0)
     probing = alive & valid
     pk1, pk2, pk3 = prng.split(k_ping, 3)
-    fwd_ok = link_pass_from(prng.uniform(pk1, (n,), dev), plan, col, tgt)
-    ack_ok = link_pass_from(prng.uniform(pk2, (n,), dev), plan, tgt, col)
+    fwd_ok = link_pass_from(cut(prng.uniform(pk1, (n,), dev)), plan, col, tgt)
+    ack_ok = link_pass_from(cut(prng.uniform(pk2, (n,), dev)), plan, tgt, col)
     rt_ok = round_trip_in_time_from(
-        prng.uniform(pk3, (n,), dev), plan, [(col, tgt), (tgt, col)],
+        cut(prng.uniform(pk3, (n,), dev)), plan, [(col, tgt), (tgt, col)],
         p.ping_timeout_ms,
     )
-    direct = probing & alive[tgt_l] & fwd_ok & ack_ok & rt_ok
+    direct = probing & alive_all[tgt_l] & fwd_ok & ack_ok & rt_ok
 
     kr, rk1, rk2, rk3, rk4, rk5 = prng.split(k_relay, 6)
     nrel = p.ping_req_members
-    ridx = prng.randint(kr, (n, nrel), 0, n, dev)
-    colc, tgtc = col[:, None], tgt[:, None]
-    rkey = record_of(colc, ridx)
+    ridx = cut(prng.randint(kr, (n, nrel), 0, n, dev))
+    colc, tgtc = col[..., None], tgt[..., None]
+    rkey = record_of(lrow[:, None], ridx)
     rvalid = (ridx != colc) & (ridx != tgtc) & (rkey >= 0) & ((rkey & DEAD_BIT) == 0)
-    leg_or = link_pass_from(prng.uniform(rk1, (n, nrel), dev), plan, colc, ridx)
-    leg_rt = link_pass_from(prng.uniform(rk2, (n, nrel), dev), plan, ridx, tgtc)
-    leg_tr = link_pass_from(prng.uniform(rk3, (n, nrel), dev), plan, tgtc, ridx)
-    leg_ro = link_pass_from(prng.uniform(rk4, (n, nrel), dev), plan, ridx, colc)
+    leg_or = link_pass_from(cut(prng.uniform(rk1, (n, nrel), dev)), plan, colc, ridx)
+    leg_rt = link_pass_from(cut(prng.uniform(rk2, (n, nrel), dev)), plan, ridx, tgtc)
+    leg_tr = link_pass_from(cut(prng.uniform(rk3, (n, nrel), dev)), plan, tgtc, ridx)
+    leg_ro = link_pass_from(cut(prng.uniform(rk4, (n, nrel), dev)), plan, ridx, colc)
     path_ok = round_trip_in_time_from(
-        prng.uniform(rk5, (n, nrel), dev), plan,
+        cut(prng.uniform(rk5, (n, nrel), dev)), plan,
         [(colc, ridx), (ridx, tgtc), (tgtc, ridx), (ridx, colc)],
         p.ping_req_timeout_ms,
     )
-    alive_r = alive[ridx.long()]
-    alive_t = alive[tgt_l][:, None]
+    alive_r = alive_all[ridx.long()]
+    alive_t = alive_all[tgt_l][..., None]
     relay = rvalid & alive_r & alive_t & leg_or & leg_rt & leg_tr & leg_ro & path_ok
-    reached = direct | (probing & relay.any(dim=1))
-    gone = reached & (epoch[tgt_l] != decode_epoch(vkey))
+    reached = direct | (probing & relay.any(dim=-1))
+    gone = reached & (epoch_all[tgt_l] != decode_epoch(vkey))
     fd_key = encode_key(
         torch.where(gone, _DEAD, _SUSPECT), decode_incarnation(vkey), decode_epoch(vkey)
     )
     fire = ((probing & ~reached) | gone) & overrides_same_epoch(fd_key, vkey)
     n_pings = probing.sum(dtype=_I32)
-    req_att = (probing & ~direct)[:, None] & rvalid
+    req_att = (probing & ~direct)[..., None] & rvalid
     n_ping_reqs = req_att.sum(dtype=_I32)
     out = (tgt, fd_key, fire, n_pings + n_ping_reqs)
     if collect:
-        ack_att = probing & fwd_ok & alive[tgt_l]
+        ack_att = probing & fwd_ok & alive_all[tgt_l]
         att2 = req_att & leg_or & alive_r
         att3 = att2 & leg_rt & alive_t
         att4 = att3 & leg_tr
@@ -814,44 +884,59 @@ def _fd_decide(p, plan, t, k_tgt, k_ping, k_relay, record_of, alive, epoch, coll
     return out
 
 
+def _rows_shape(n) -> tuple:
+    """The viewer-row shape: ``(n,)``, or a shard caller's ``(dl, nl)``."""
+    return tuple(n) if isinstance(n, tuple) else (n,)
+
+
 def _fd_zeros(n, collect, dev, trace=False):
+    shape = _rows_shape(n)
     zero = torch.zeros((), dtype=_I32, device=dev)
     out = (
-        torch.zeros((n,), dtype=_I32, device=dev),
-        torch.zeros((n,), dtype=_I32, device=dev),
-        torch.zeros((n,), dtype=torch.bool, device=dev),
+        torch.zeros(shape, dtype=_I32, device=dev),
+        torch.zeros(shape, dtype=_I32, device=dev),
+        torch.zeros(shape, dtype=torch.bool, device=dev),
         zero,
     )
     if collect:
         out = out + (zero, zero, zero) + _acct_zero(dev)
     if trace:
-        none = torch.zeros((n,), dtype=torch.bool, device=dev)
+        none = torch.zeros(shape, dtype=torch.bool, device=dev)
         out = out + (none, none, none)
     return out
 
 
-def _sync_fire(p, plan, k_ssel, k_slink, record_of, alive, W, wsubj, collect):
-    """The own-record + bounded-window SYNC decision for every viewer.
-    Returns ``(partner, learned_key, accept, msgs, learned_w, accept_w,
-    self_win)`` plus, under ``collect``, the 4 accounting sums."""
+def _sync_fire(p, plan, k_ssel, k_slink, record_of, alive, W, wsubj, collect,
+               shard: ShardRows | None = None, partner_records=None):
+    """The own-record + bounded-window SYNC decision for the caller's
+    viewers. Returns ``(partner, learned_key, accept, msgs, learned_w,
+    accept_w, self_win)`` plus, under ``collect``, the 4 accounting sums.
+    ``partner_records(prt_full, prt)`` is the one remote read (the
+    partners' own records and their window records): direct reads here,
+    the SYNC reply exchange in the explicit-SPMD engine (with ``shard``)."""
     n = p.n
     dev = alive.device
-    col = torch.arange(n, dtype=_I32, device=dev)
-    prt = prng.randint(k_ssel, (n,), 0, n, dev)
-    s_pass = link_pass_from(prng.uniform(k_slink, (n,), dev), plan, col, prt)
-    ok = alive & alive[prt.long()] & (prt != col) & s_pass
-    learned_key = record_of(prt, prt)
-    accept = ok & sync_accept(learned_key, record_of(col, prt))
-    if W > 0:
-        learned_w = record_of(prt[:, None], wsubj[None, :])
-        mine_w = record_of(col[:, None], wsubj[None, :])
-        self_cell = wsubj[None, :] == col[:, None]
-        accept_w = ok[:, None] & ~self_cell & sync_accept(learned_w, mine_w)
-        self_win = torch.where(
-            self_cell & ok[:, None] & (learned_w >= 0), learned_w, UNKNOWN_KEY
-        ).amax(dim=1)
+    rows = _own_rows(n, alive, None, shard)
+    lrow, col, cut = rows.lrow, rows.col, rows.cut
+    prt_full = prng.randint(k_ssel, (n,), 0, n, dev)
+    prt = cut(prt_full)
+    s_pass = link_pass_from(cut(prng.uniform(k_slink, (n,), dev)), plan, col, prt)
+    ok = alive & rows.alive_all[prt.long()] & (prt != col) & s_pass
+    if partner_records is None:
+        learned_key = record_of(prt, prt)
+        learned_w = record_of(prt[:, None], wsubj[None, :]) if W > 0 else None
     else:
-        learned_w, accept_w, self_win = _window_zeros(n, W, dev)
+        learned_key, learned_w = partner_records(prt_full, prt)
+    accept = ok & sync_accept(learned_key, record_of(lrow, prt))
+    if W > 0:
+        mine_w = record_of(lrow[:, None], wsubj[None, :])
+        self_cell = wsubj == col[..., None]
+        accept_w = ok[..., None] & ~self_cell & sync_accept(learned_w, mine_w)
+        self_win = torch.where(
+            self_cell & ok[..., None] & (learned_w >= 0), learned_w, UNKNOWN_KEY
+        ).amax(dim=-1)
+    else:
+        learned_w, accept_w, self_win = _window_zeros(prt.shape, W, dev)
     out = (prt, learned_key, accept, ok.sum(dtype=_I32) * 2, learned_w, accept_w, self_win)
     if collect:
         att_f = alive & (prt != col)
@@ -862,23 +947,318 @@ def _sync_fire(p, plan, k_ssel, k_slink, record_of, alive, W, wsubj, collect):
 
 
 def _window_zeros(n, W, dev):
+    shape = _rows_shape(n)
     return (
-        torch.full((n, W), UNKNOWN_KEY, dtype=_I32, device=dev),
-        torch.zeros((n, W), dtype=torch.bool, device=dev),
-        torch.full((n,), UNKNOWN_KEY, dtype=_I32, device=dev),
+        torch.full(shape + (W,), UNKNOWN_KEY, dtype=_I32, device=dev),
+        torch.zeros(shape + (W,), dtype=torch.bool, device=dev),
+        torch.full(shape, UNKNOWN_KEY, dtype=_I32, device=dev),
     )
 
 
 def _sync_zeros(n, W, collect, dev):
+    shape = _rows_shape(n)
     out = (
-        torch.zeros((n,), dtype=_I32, device=dev),
-        torch.zeros((n,), dtype=_I32, device=dev),
-        torch.zeros((n,), dtype=torch.bool, device=dev),
+        torch.zeros(shape, dtype=_I32, device=dev),
+        torch.zeros(shape, dtype=_I32, device=dev),
+        torch.zeros(shape, dtype=torch.bool, device=dev),
         torch.zeros((), dtype=_I32, device=dev),
     ) + _window_zeros(n, W, dev)
     if collect:
         out = out + _acct_zero(dev)
     return out
+
+
+# The tick's steps after the exchanges, shared with the explicit-SPMD engine
+# (parallel/spmd.py). Each works on the caller's viewer rows: ``[n]`` here,
+# a shard caller's ``[dl, nl]`` there, with ``[rows..., S]`` slab planes and
+# global member ids in ``col``. The [N, S] planes are updated in place.
+def _grant_slots(req, slot_subj, subj_slot, cap, fresh_m=None, join_m=None):
+    """Step 3's grant: the ``[n]`` slot requests (plus ``fresh_m``'s own
+    announcements; under a join mask those outrank the rest) of subjects
+    without a slot get the first free slots, up to ``cap``. Returns
+    ``(slot_subj, subj_slot, free_slots, tgt_slots, new_subjects,
+    n_granted, slot_overflow)``."""
+    n, S = req.shape[0], slot_subj.shape[0]
+    if fresh_m is not None:
+        req = req | fresh_m
+    req = req & (subj_slot < 0)
+    if join_m is not None:
+        # Elastic runs: fresh activations (join/restart) outrank the
+        # organic FD/SYNC/sweep requests, so a join never loses its
+        # announcing slot to a coincident sweep.
+        fresh_req = req & fresh_m
+        rank_fresh = torch.cumsum(fresh_req.to(_I32), 0, dtype=_I32) - 1
+        rank_rest = (
+            torch.cumsum((req & ~fresh_m).to(_I32), 0, dtype=_I32) - 1
+            + fresh_req.sum(dtype=_I32)
+        )
+        req_rank = torch.where(fresh_req, rank_fresh, rank_rest)
+    else:
+        req_rank = torch.cumsum(req.to(_I32), 0, dtype=_I32) - 1
+    free = slot_subj < 0
+    free_slots = _first_true(free, cap, S - 1)
+    n_free = free.sum(dtype=_I32)
+    granted = req & (req_rank < cap) & (req_rank < n_free)
+    new_subjects = _first_true(granted, cap, 0)
+    n_granted = granted.sum(dtype=_I32)
+    grant_valid = torch.arange(cap, dtype=_I32, device=req.device) < torch.minimum(
+        n_granted, n_free
+    )
+    slot_overflow = req.sum(dtype=_I32) - n_granted
+    tgt_slots = torch.where(grant_valid, free_slots, S)
+    slot_subj = _put_drop(slot_subj, tgt_slots, new_subjects)
+    subj_slot = _put_drop(subj_slot, torch.where(grant_valid, new_subjects, n), free_slots)
+    return slot_subj, subj_slot, free_slots, tgt_slots, new_subjects, n_granted, slot_overflow
+
+
+def _load_granted(slab, age, susp, cols, free_slots, tgt_slots):
+    """Load the granted subjects' view columns ``cols [rows..., cap]`` into
+    their slab slots in place, stale and unarmed."""
+    load = _column_writer(free_slots, tgt_slots, slab.shape[-1])
+    load(slab, cols)
+    load(age, torch.full(cols.shape, AGE_STALE, dtype=torch.int8, device=cols.device))
+    load(susp, torch.zeros(cols.shape, dtype=torch.int16, device=cols.device))
+
+
+def _own_cells(own_slot):
+    """Each row's own-subject column (0 where it has no slot), as the
+    ``[rows..., 1]`` index of a gather or scatter along the slot axis."""
+    return torch.clamp_min(own_slot, 0).long()[..., None]
+
+
+def _announce_fresh(slab, age, fresh, own_slot, epoch):
+    """A restarted (or joining) member's bumped-epoch ALIVE key, young, in
+    its own cell (part of the event, not a tick verdict); in place."""
+    fire = fresh & (own_slot >= 0)
+    cell = _own_cells(own_slot)
+    key = encode_key(torch.full_like(epoch, _ALIVE), torch.zeros_like(epoch), epoch)
+    slab.scatter_(-1, cell, torch.where(fire, key, slab.gather(-1, cell)[..., 0])[..., None])
+    age.scatter_(-1, cell, torch.where(fire, 0, age.gather(-1, cell)[..., 0])
+                 .to(torch.int8)[..., None])
+
+
+def _aggr_flags(aggr):
+    """The core's per-slot aggregate ``[..., S]`` as ``[S]`` flags, OR-ed
+    over any leading (shard) axes: ``(pin, seen_suspect, seen_dead)``."""
+    flags = [((aggr >> bit) & 1).bool() for bit in (AGGR_HOLD_BIT, AGGR_SUSPECT_BIT,
+                                                     AGGR_DEAD_BIT)]
+    if aggr.dim() > 1:
+        flags = [x.reshape(-1, aggr.shape[-1]).any(dim=0) for x in flags]
+    return tuple(flags)
+
+
+def _window_sync_apply(slab2, age, susp, subj_slot, wsubj, win_key, win_accept, alive,
+                       susp_fill, pin, seen_s, seen_d):
+    """Step 6.5: the accepted window SYNC learnings ``win_key [rows..., W]``
+    of active subjects, written in place where they still win over the
+    post-core cell (young, armed if suspect). Returns the ``[S]`` pin and
+    seen-suspect / seen-dead flags with the applied slots OR-ed in."""
+    S = slab2.shape[-1]
+    wslot = subj_slot[wsubj.long()]
+    safe = torch.clamp_min(wslot, 0).long()
+    route = torch.where(wslot >= 0, wslot, S)
+    cur = slab2[..., safe]
+    app = win_accept & (wslot >= 0) & alive[..., None] & sync_accept(win_key, cur)
+    new = torch.where(app, win_key, cur)
+    new_age = torch.where(app, 0, age[..., safe])
+    new_susp = torch.where(app, torch.where(is_suspect_key(new), susp_fill, 0),
+                           susp[..., safe].to(_I32))
+    put = _column_writer(safe, route, S)
+    put(slab2, new)
+    put(age, new_age)
+    put(susp, new_susp)
+    # Applied cells become young at a live viewer (their slot holds); the
+    # learned key may be the slot's first suspect/dead record.
+    app = app.reshape(-1, app.shape[-1])
+    learned = win_key.reshape(app.shape)
+    pin = _or_drop(pin, route, app.any(dim=0))
+    seen_s = _or_drop(seen_s, route, (app & is_suspect_key(learned)).any(dim=0))
+    seen_d = _or_drop(seen_d, route, (app & is_dead_key(learned)).any(dim=0))
+    return pin, seen_s, seen_d
+
+
+def _threatened(alive, rumor, epoch, inc_self):
+    """A live member's rumor ``rumor`` (UNKNOWN < 0 = none) is a SUSPECT or
+    DEAD record of its current identity (epoch, incarnation or newer)."""
+    status = decode_status(rumor)
+    return (
+        alive
+        & (rumor >= 0)
+        & (decode_epoch(rumor) == epoch)
+        & (decode_incarnation(rumor) >= inc_self)
+        & ((status == _SUSPECT) | (status == _DEAD))
+    )
+
+
+def _self_refute(slab2, age, self_rumor, own_slot, alive, inc_self, epoch, pin):
+    """Step 7: a live member that heard a SUSPECT/DEAD rumor of its current
+    identity bumps its incarnation and writes the refuting ALIVE key, young,
+    into its own cell (in place). Returns ``(inc_self, pin)``."""
+    S = slab2.shape[-1]
+    has_own = own_slot >= 0
+    cell = _own_cells(own_slot)
+    own_cur = slab2.gather(-1, cell)[..., 0]
+    # Where there is no own slot the threat is off (has_own) whatever the
+    # stand-in key says.
+    threat = (
+        _threatened(alive, self_rumor, epoch, inc_self)
+        & ((own_cur & DEAD_BIT) == 0)
+        & has_own
+    )
+    inc_self = torch.where(threat, decode_incarnation(self_rumor) + 1, inc_self)
+    own_new = encode_key(torch.zeros_like(inc_self), inc_self, epoch)
+    slab2.scatter_(-1, cell, torch.where(threat, own_new, own_cur)[..., None])
+    age.scatter_(-1, cell, torch.where(threat, 0, age.gather(-1, cell)[..., 0])
+                 .to(torch.int8)[..., None])
+    pin = _or_drop(pin, torch.where(threat, own_slot, S).flatten(), threat.flatten())
+    return inc_self, pin
+
+
+def _seen_in_slab(slab2, alive):
+    """Step 9's per-slot flags from the final slab: some live viewer holds
+    a SUSPECT (DEAD) record of the slot's subject."""
+    live = alive[..., None]
+    s = slab2.shape[-1]
+    return ((is_suspect_key(slab2) & live).reshape(-1, s).any(dim=0),
+            (is_dead_key(slab2) & live).reshape(-1, s).any(dim=0))
+
+
+def _record_latency(lat_s, lat_d, seen_s, seen_d, own_slot, t):
+    """Step 9: a member whose slot is seen SUSPECT (DEAD) by a live viewer
+    anywhere gets tick ``t`` as its first-suspect (first-dead) tick, once."""
+    has_own = own_slot >= 0
+    cell = torch.clamp_min(own_slot, 0).long()
+    lat_s = torch.where(has_own & seen_s[cell] & (lat_s < 0), t, lat_s)
+    lat_d = torch.where(has_own & seen_d[cell] & (lat_d < 0), t, lat_d)
+    return lat_s, lat_d
+
+
+def _emit_tick(ring, t, n, col, fd_tgt, fd_fire, fd_trace, sy_accept, sy_subj, alive, active,
+               slot_subj, slab0, slab2, expired, new_seen, useen, sync_aux=0):
+    """Step 9.5, the causal flight recorder: the tick's events of the rows
+    ``col [r]`` into ``ring``. Emission order within the tick is the causal
+    order (probes, misses, suspicions, SYNC, verdicts, infections), so every
+    ``cause`` points strictly backwards in the ring. ``fd_trace`` is
+    :func:`_fd_decide`'s ``(probing, missed, gone)``; ``slab0`` the
+    post-load snapshot the verdicts are taken against; ``sync_aux`` the SYNC
+    accepts' ``aux``. Returns the ring."""
+    probing, missed, gone = fd_trace
+    ring, sent_pos = trace_emit(ring, TK_PROBE_SENT, probing, t, col, fd_tgt)
+    ring, miss_pos = trace_emit(ring, TK_PROBE_MISSED, missed, t, col, fd_tgt, cause=sent_pos)
+    # Latest recorded miss per subject (the largest position wins).
+    ring = ring.replace(
+        last_miss=_max_drop(ring.last_miss, torch.where(miss_pos >= 0, fd_tgt, n), miss_pos)
+    )
+    # A fired SUSPECT verdict is caused by this row's missed round.
+    ring, susp_pos = trace_emit(ring, TK_SUSPECT_START, fd_fire & ~gone, t, col, fd_tgt,
+                                cause=miss_pos)
+    # The verdict episode's origin per subject: the suspicion that started
+    # the countdown, or the probe that found a newer epoch.
+    origin = _max_drop(ring.origin, torch.where(susp_pos >= 0, fd_tgt, n), susp_pos)
+    gone_fire = fd_fire & gone & (sent_pos >= 0)
+    origin = _max_drop(origin, torch.where(gone_fire, fd_tgt, n), sent_pos)
+    ring = ring.replace(origin=origin)
+    ring, _ = trace_emit(ring, TK_SYNC_ACCEPT, sy_accept, t, col, sy_subj, aux=sync_aux)
+    # Per-viewer verdict transitions, post-load snapshot vs final slab.
+    live = alive[:, None] & active[None, :]
+    subj_row = slot_subj[None, :]
+    cause_row = ring.origin[torch.clamp(slot_subj, 0, n - 1).long()][None, :]
+    ring, _ = trace_emit(
+        ring, TK_VERDICT_DEAD, is_dead_key(slab2) & ~is_dead_key(slab0) & live,
+        t, col[:, None], subj_row, cause=cause_row,
+        aux=torch.where(expired, DEAD_VIA_EXPIRY, DEAD_VIA_GOSSIP),
+    )
+    ring, _ = trace_emit(
+        ring, TK_VERDICT_ALIVE,
+        is_alive_key(slab2) & ~is_alive_key(slab0) & (slab0 >= 0) & live,
+        t, col[:, None], subj_row, cause=cause_row,
+    )
+    # User-gossip infection edges (injected ones were recorded with the
+    # events, where they are still visible).
+    ring, _ = trace_emit(
+        ring, TK_GOSSIP_EDGE, new_seen & ~useen, t, col[:, None],
+        torch.arange(useen.shape[-1], dtype=_I32, device=useen.device)[None, :],
+    )
+    return ring
+
+
+def _count(mask: torch.Tensor) -> torch.Tensor:
+    return mask.sum(dtype=_I32)
+
+
+def _view_partials(slab0, slab2, alive, active, new_seen, useen, win_accept) -> dict:
+    """The tick's counters that are sums over the caller's viewer rows (a
+    shard's partial sums in the explicit-SPMD engine)."""
+    viewer_live = alive[..., None] & active
+    is_susp2 = is_suspect_key(slab2)
+    return {
+        "n_suspected": _count(is_susp2 & viewer_live),
+        "suspicions_raised": _count(is_susp2 & ~is_suspect_key(slab0) & viewer_live),
+        "verdicts_dead": _count(is_dead_key(slab2) & ~is_dead_key(slab0) & viewer_live),
+        "verdicts_alive": _count(
+            is_alive_key(slab2) & ~is_alive_key(slab0) & (slab0 >= 0) & viewer_live
+        ),
+        "gossip_infections": _count(new_seen & ~useen),
+        "coverage_num": (new_seen & alive[..., None]).reshape(-1, useen.shape[-1])
+        .sum(dim=0, dtype=_I32),
+        "n_alive": _count(alive),
+        "sync_window_accepts": _count(win_accept),
+    }
+
+
+def _link_partials(fd_out, sy_out, g_acct) -> dict:
+    """The message and link counters of the tick's FD, SYNC and gossip
+    channels (``fd_out`` / ``sy_out`` as :func:`_fd_decide` /
+    :func:`_sync_fire` return them under ``collect``)."""
+    acct = _acct_add(fd_out[7:11], g_acct, sy_out[7:11])
+    return {
+        "msgs_fd": fd_out[3], "msgs_sync": sy_out[3],
+        "pings": fd_out[4], "ping_reqs": fd_out[5], "acks": fd_out[6],
+        "link_attempts": acct[0], "link_delivered": acct[1],
+        "fault_blocked": acct[2], "fault_lost": acct[3],
+    }
+
+
+def _tick_metrics(tick, parts: dict, *, n_active_slots, slot_overflow, slot_activations,
+                  slot_frees, inc_max, epoch_max, **extra) -> dict:
+    """The tick's metrics row in the reference's order from the counter
+    totals ``parts`` (:func:`_view_partials`, :func:`_link_partials`,
+    ``msgs_gossip``, ``msgs_user``), the slot gauges and the engine's own
+    ``extra`` counters; the shared schema's other slots are zero."""
+    metrics = {
+        "tick": tick,
+        "n_active_slots": n_active_slots,
+        "slot_overflow": slot_overflow,
+        "n_suspected": parts["n_suspected"],
+        "msgs_fd": parts["msgs_fd"],
+        "msgs_sync": parts["msgs_sync"],
+        "msgs_gossip": parts["msgs_gossip"],
+        "msgs_user": parts["msgs_user"],
+        "gossip_coverage": parts["coverage_num"] / torch.clamp_min(parts["n_alive"], 1),
+        "pings": parts["pings"],
+        "ping_reqs": parts["ping_reqs"],
+        "acks": parts["acks"],
+        "suspicions_raised": parts["suspicions_raised"],
+        "verdicts_dead": parts["verdicts_dead"],
+        "verdicts_alive": parts["verdicts_alive"],
+        "gossip_infections": parts["gossip_infections"],
+        "slot_activations": slot_activations,
+        "slot_frees": slot_frees,
+        "sync_window_accepts": parts["sync_window_accepts"],
+        "link_attempts": parts["link_attempts"],
+        "link_delivered": parts["link_delivered"],
+        "fault_blocked": parts["fault_blocked"],
+        "fault_lost": parts["fault_lost"],
+        "inc_max": inc_max,
+        "epoch_max": epoch_max,
+        **extra,
+    }
+    zero = torch.zeros((), dtype=_I32, device=tick.device)
+    # The schema's slots of other engines and of the serving / fleet planes:
+    # constant zero on an offline SWIM tick.
+    for key in SHARED_COUNTERS:
+        metrics.setdefault(key, zero)
+    return metrics
 
 
 def sparse_route(params: SparseParams) -> bool:
@@ -922,6 +1302,8 @@ def sparse_tick(
             "knobs require the XLA tick core: sparse_core_pallas bakes the "
             "suspicion timeout as a kernel constant (set pallas_core=False)"
         )
+    if isinstance(state.trace, ShardTraceRing):
+        raise ValueError(SHARDED_RING_ERROR)
     if not isinstance(plan, FaultPlan):
         raise TypeError(
             f"sparse_tick takes one tick's FaultPlan (got {type(plan).__name__}); "
@@ -952,7 +1334,6 @@ def sparse_tick(
         prng.split(state.rng, 8)
     )
     col = torch.arange(n, dtype=_I32, device=dev)
-    col_l = col.long()
     srange = torch.arange(S, dtype=_I32, device=dev)
     alive = state.alive
     do_fd = t % p.fd_period_ticks == 0
@@ -1010,62 +1391,17 @@ def sparse_tick(
             req.scatter_reduce_(0, wsubj.long(), win_accept.any(dim=0).to(_I32), "amax")
     req = req.bool()
     if do_sync and W > 0:
-        st_w = decode_status(self_win)
-        req = req | (
-            alive
-            & (self_win >= 0)
-            & (decode_epoch(self_win) == state.epoch)
-            & (decode_incarnation(self_win) >= state.inc_self)
-            & ((st_w == _SUSPECT) | (st_w == _DEAD))
-        )
-    if fresh_m is not None:
-        # A restarted node requests its own subject's slot to announce in.
-        req = req | fresh_m
-    req = req & (subj_slot < 0)
-    cap = params.alloc_cap
-    if join_m is not None:
-        # Elastic runs: fresh activations (join/restart) outrank the
-        # organic FD/SYNC/sweep requests, so a join never loses its
-        # announcing slot to a coincident sweep.
-        fresh_req = req & fresh_m
-        rank_fresh = torch.cumsum(fresh_req.to(_I32), 0, dtype=_I32) - 1
-        rank_rest = (
-            torch.cumsum((req & ~fresh_m).to(_I32), 0, dtype=_I32) - 1
-            + fresh_req.sum(dtype=_I32)
-        )
-        req_rank = torch.where(fresh_req, rank_fresh, rank_rest)
-    else:
-        req_rank = torch.cumsum(req.to(_I32), 0, dtype=_I32) - 1
-    free = slot_subj < 0
-    free_slots = _first_true(free, cap, S - 1)
-    n_free = free.sum(dtype=_I32)
-    granted = req & (req_rank < cap) & (req_rank < n_free)
-    new_subjects = _first_true(granted, cap, 0)
-    n_granted = granted.sum(dtype=_I32)
-    grant_valid = torch.arange(cap, dtype=_I32, device=dev) < torch.minimum(
-        n_granted, n_free
+        req = req | _threatened(alive, self_win, state.epoch, state.inc_self)
+    # A restarted (or joining) node also requests its own subject's slot,
+    # and announces its new identity there.
+    slot_subj, subj_slot, free_slots, tgt_slots, new_subjects, n_granted, slot_overflow = (
+        _grant_slots(req, slot_subj, subj_slot, params.alloc_cap, fresh_m, join_m)
     )
-    slot_overflow = req.sum(dtype=_I32) - n_granted
-    tgt_slots = torch.where(grant_valid, free_slots, S)
-    slot_subj = _put_drop(slot_subj, tgt_slots, new_subjects)
-    subj_slot = _put_drop(subj_slot, torch.where(grant_valid, new_subjects, n), free_slots)
-
-    # Load the activated subjects' rows into their slab columns, in place.
     slab, age, susp = state.slab, state.age, state.susp
-    load = _column_writer(free_slots, tgt_slots, S)
-    load(slab, view_T[new_subjects.long()].T)
-    load(age, torch.full((n, cap), AGE_STALE, dtype=torch.int8, device=dev))
-    load(susp, torch.zeros((n, cap), dtype=torch.int16, device=dev))
+    _load_granted(slab, age, susp, view_T[new_subjects.long()].T, free_slots, tgt_slots)
     active = slot_subj >= 0
     if fresh_m is not None:
-        # Restart self-announce: the bumped-epoch ALIVE key, young, in the
-        # node's own cell (part of the event, not a tick verdict).
-        r_fire = fresh_m & (subj_slot >= 0)
-        r_safe = torch.where(r_fire, subj_slot, 0).long()
-        r_key = encode_key(torch.full_like(state.epoch, _ALIVE), torch.zeros_like(state.epoch),
-                           state.epoch)
-        slab[col_l, r_safe] = torch.where(r_fire, r_key, slab[col_l, r_safe])
-        age[col_l, r_safe] = torch.where(r_fire, 0, age[col_l, r_safe]).to(torch.int8)
+        _announce_fresh(slab, age, fresh_m, subj_slot, state.epoch)
 
     # ------------------------ 4. FD verdict / SYNC learning point lanes
     slab0, age_pre = slab, age
@@ -1100,65 +1436,17 @@ def sparse_tick(
         )
     # Per-slot aggregates (what the 'wb_mask' / 'view_rows' folds consume),
     # plus the corrections of the post-core steps below.
-    pin_k = ((aggr >> AGGR_HOLD_BIT) & 1).bool()
-    seen_s = ((aggr >> AGGR_SUSPECT_BIT) & 1).bool()
-    seen_d = ((aggr >> AGGR_DEAD_BIT) & 1).bool()
-    pin_extra = torch.zeros((S,), dtype=torch.bool, device=dev)
+    pin, seen_s, seen_d = _aggr_flags(aggr)
 
     # ---------------------------------- 6.5 window SYNC application
     if do_sync and W > 0:
-        wslot = subj_slot[wsubj.long()]
-        safe = torch.clamp_min(wslot, 0).long()
-        route = torch.where(wslot >= 0, wslot, S)
-        cur = slab2[:, safe]
-        app = (
-            win_accept
-            & (wslot >= 0)[None, :]
-            & alive[:, None]
-            & sync_accept(win_key, cur)
-        )
-        new = torch.where(app, win_key, cur)
-        new_age = torch.where(app, 0, age[:, safe])
-        new_susp = torch.where(
-            app,
-            torch.where(is_suspect_key(new), susp_fill, 0),
-            susp[:, safe].to(_I32),
-        )
-        put = _column_writer(safe, route, S)
-        put(slab2, new)
-        put(age, new_age)
-        put(susp, new_susp)
-        # Applied cells become young at a live viewer (their slot holds);
-        # the learned key may be the slot's first suspect/dead record.
-        pin_extra = _or_drop(pin_extra, route, app.any(dim=0))
-        seen_s = _or_drop(seen_s, route, (app & is_suspect_key(win_key)).any(dim=0))
-        seen_d = _or_drop(seen_d, route, (app & is_dead_key(win_key)).any(dim=0))
+        pin, seen_s, seen_d = _window_sync_apply(
+            slab2, age, susp, subj_slot, wsubj, win_key, win_accept, alive, susp_fill,
+            pin, seen_s, seen_d)
 
     # ---------------------------------------------- 7. self-refutation
-    self_rumor = torch.maximum(self_rumor, self_win)
-    r_status = decode_status(self_rumor)
-    own_slot = subj_slot
-    has_own = own_slot >= 0
-    own_safe = torch.clamp_min(own_slot, 0).long()
-    own_cur = slab2[col_l, own_safe]
-    own_key = torch.where(
-        has_own, own_cur,
-        encode_key(torch.zeros_like(state.inc_self), state.inc_self, state.epoch),
-    )
-    threat = (
-        alive
-        & ((own_key & DEAD_BIT) == 0)
-        & (self_rumor >= 0)
-        & (decode_epoch(self_rumor) == state.epoch)
-        & ((r_status == _SUSPECT) | (r_status == _DEAD))
-        & (decode_incarnation(self_rumor) >= state.inc_self)
-        & has_own
-    )
-    inc_self = torch.where(threat, decode_incarnation(self_rumor) + 1, state.inc_self)
-    own_new = encode_key(torch.zeros_like(inc_self), inc_self, state.epoch)
-    slab2[col_l, own_safe] = torch.where(threat, own_new, own_cur)
-    age[col_l, own_safe] = torch.where(threat, 0, age[col_l, own_safe]).to(torch.int8)
-    pin_extra = _or_drop(pin_extra, torch.where(threat, own_slot, S), threat)
+    inc_self, pin = _self_refute(slab2, age, torch.maximum(self_rumor, self_win), subj_slot,
+                                 alive, state.inc_self, state.epoch, pin)
 
     # --------------------------------------------------- 8. user gossip
     if state.uinf_ids.shape[2] > 0:
@@ -1179,62 +1467,15 @@ def sparse_tick(
     lat_s, lat_d = state.lat_first_suspect, state.lat_first_dead
     if lat_s is not None:
         if "view_rows" not in fold:
-            seen_s = (is_suspect_key(slab2) & alive[:, None]).any(dim=0)
-            seen_d = (is_dead_key(slab2) & alive[:, None]).any(dim=0)
-        subj_safe = torch.clamp(slot_subj, 0, n - 1).long()
-        first_s = seen_s & active & (lat_s[subj_safe] < 0)
-        first_d = seen_d & active & (lat_d[subj_safe] < 0)
-        t_vec = tick.expand(S)
-        lat_s = _put_drop(lat_s, torch.where(first_s, slot_subj, n), t_vec)
-        lat_d = _put_drop(lat_d, torch.where(first_d, slot_subj, n), t_vec)
+            seen_s, seen_d = _seen_in_slab(slab2, alive)
+        lat_s, lat_d = _record_latency(lat_s, lat_d, seen_s, seen_d, subj_slot, tick)
 
     # ------------------------------ 9.5 causal flight recorder
-    # Emission order within the tick is the causal order (probes, misses,
-    # suspicions, SYNC, verdicts, infections), so every ``cause`` points
-    # strictly backwards in the ring.
     ring = state.trace
     if ring is not None:
-        probing_tr, missed_tr, gone_tr = fd_out[-3:]
-        ring, sent_pos = trace_emit(ring, TK_PROBE_SENT, probing_tr, t, col, fd_tgt)
-        ring, miss_pos = trace_emit(
-            ring, TK_PROBE_MISSED, missed_tr, t, col, fd_tgt, cause=sent_pos
-        )
-        # Latest recorded miss per subject (the largest position wins).
-        ring = ring.replace(
-            last_miss=_max_drop(ring.last_miss, torch.where(miss_pos >= 0, fd_tgt, n), miss_pos)
-        )
-        # A fired SUSPECT verdict is caused by this row's missed round.
-        ring, susp_pos = trace_emit(
-            ring, TK_SUSPECT_START, fd_fire & ~gone_tr, t, col, fd_tgt, cause=miss_pos
-        )
-        # The verdict episode's origin per subject: the suspicion that
-        # started the countdown, or the probe that found a newer epoch.
-        origin = _max_drop(ring.origin, torch.where(susp_pos >= 0, fd_tgt, n), susp_pos)
-        gone_fire = fd_fire & gone_tr & (sent_pos >= 0)
-        origin = _max_drop(origin, torch.where(gone_fire, fd_tgt, n), sent_pos)
-        ring = ring.replace(origin=origin)
-        ring, _ = trace_emit(ring, TK_SYNC_ACCEPT, sy_accept, t, col, sy_subj)
-        # Per-viewer verdict transitions, post-load snapshot vs final slab.
-        viewer_live_tr = alive[:, None] & active[None, :]
-        subj_row = slot_subj[None, :]
-        cause_row = ring.origin[torch.clamp(slot_subj, 0, n - 1).long()][None, :]
-        ring, _ = trace_emit(
-            ring, TK_VERDICT_DEAD,
-            is_dead_key(slab2) & ~is_dead_key(slab0) & viewer_live_tr,
-            t, col[:, None], subj_row, cause=cause_row,
-            aux=expired[0].to(torch.int8) * (DEAD_VIA_EXPIRY - DEAD_VIA_GOSSIP) + DEAD_VIA_GOSSIP,
-        )
-        ring, _ = trace_emit(
-            ring, TK_VERDICT_ALIVE,
-            is_alive_key(slab2) & ~is_alive_key(slab0) & (slab0 >= 0) & viewer_live_tr,
-            t, col[:, None], subj_row, cause=cause_row,
-        )
-        # User-gossip infection edges (injected ones were recorded with the
-        # events, where they are still visible).
-        ring, _ = trace_emit(
-            ring, TK_GOSSIP_EDGE, new_seen & ~state.useen, t, col[:, None],
-            torch.arange(state.useen.shape[1], dtype=_I32, device=dev)[None, :],
-        )
+        ring = _emit_tick(ring, t, n, col, fd_tgt, fd_fire, fd_out[-3:], sy_accept, sy_subj,
+                          alive, active, slot_subj, slab0, slab2, expired[0], new_seen,
+                          state.useen)
 
     # The pin mask is carried only under the 'wb_mask' fold; else it is
     # flagged stale and the next free decision recomputes it.
@@ -1255,7 +1496,7 @@ def sparse_tick(
         t_host=t,
         lat_first_suspect=lat_s,
         lat_first_dead=lat_d,
-        wb_pinned=pin_k | pin_extra if carry else state.wb_pinned,
+        wb_pinned=pin if carry else state.wb_pinned,
         wb_valid=None if state.wb_valid is None else torch.full_like(state.wb_valid, carry),
         trace=ring,
     )
@@ -1272,7 +1513,6 @@ def sparse_tick(
     sender_active = (
         (age_send < p.periods_to_spread) & active[None, :] & (slab_send >= 0)
     ).any(dim=1)
-    fd_pings, fd_ping_reqs, fd_acks = fd_out[4:7]
     g_att = []
     g_acct = _acct_zero(dev)
     for c in range(f):
@@ -1284,54 +1524,22 @@ def sparse_tick(
         g_acct = _acct_add(
             g_acct, _link_acct(att, edge_blocked(plan, inv_perm[c], col), gpass[c])
         )
-    acct = _acct_add(fd_out[7:11], g_acct, sy_out[7:11])
-    viewer_live = alive[:, None] & active[None, :]
-    is_susp2 = is_suspect_key(slab2)
-    was_dead = is_dead_key(slab0)
-    now_dead = is_dead_key(slab2)
-    zero = torch.zeros((), dtype=_I32, device=dev)
-
-    def count(mask):
-        return mask.sum(dtype=_I32)
-
-    metrics = {
-        "tick": tick,
-        "n_active_slots": count(active),
-        "slot_overflow": slot_overflow,
-        "n_suspected": count(is_susp2 & viewer_live),
-        "msgs_fd": msgs_fd,
-        "msgs_sync": msgs_sync,
-        "msgs_gossip": sum(count(m) for m in g_att),
+    parts = {
+        **_view_partials(slab0, slab2, alive, active, new_seen, state.useen, win_accept),
+        **_link_partials(fd_out, sy_out, g_acct),
+        "msgs_gossip": sum(_count(m) for m in g_att),
         "msgs_user": msgs_user,
-        "gossip_coverage": (new_seen & alive[:, None]).sum(dim=0, dtype=_I32)
-        / torch.clamp_min(count(alive), 1),
-        "pings": fd_pings,
-        "ping_reqs": fd_ping_reqs,
-        "acks": fd_acks,
-        "suspicions_raised": count(is_susp2 & ~is_suspect_key(slab0) & viewer_live),
-        "verdicts_dead": count(now_dead & ~was_dead & viewer_live),
-        "verdicts_alive": count(
-            is_alive_key(slab2) & ~is_alive_key(slab0) & (slab0 >= 0) & viewer_live
-        ),
-        "gossip_infections": count(new_seen & ~state.useen),
-        "slot_activations": n_granted,
-        "slot_frees": count(freeing) if freeing is not None else zero,
-        "sync_window_accepts": count(win_accept),
-        "link_attempts": acct[0],
-        "link_delivered": acct[1],
-        "fault_blocked": acct[2],
-        "fault_lost": acct[3],
-        "inc_max": inc_self.max(),
-        "epoch_max": state.epoch.max(),
+    }
+    zero = torch.zeros((), dtype=_I32, device=dev)
+    metrics = _tick_metrics(
+        tick, parts, n_active_slots=_count(active), slot_overflow=slot_overflow,
+        slot_activations=n_granted, slot_frees=_count(freeing) if freeing is not None else zero,
+        inc_max=inc_self.max(), epoch_max=state.epoch.max(),
         # Elastic membership: the tick's join activations and the
         # live-member gauge (zero on a fixed-shape cluster).
-        "joins_admitted": count(join_m) if join_m is not None else zero,
-        "n_live": count(new_state.live_mask) if new_state.live_mask is not None else zero,
-    }
-    # The schema's slots of other engines and of the serving / fleet planes:
-    # constant zero on an offline SWIM tick.
-    for key in SHARED_COUNTERS:
-        metrics.setdefault(key, zero)
+        joins_admitted=_count(join_m) if join_m is not None else zero,
+        n_live=_count(new_state.live_mask) if new_state.live_mask is not None else zero,
+    )
     if ring is not None:
         # Lossless ring accounting: events the bounded ring could not hold.
         metrics["trace_overflow"] = ring.overflow

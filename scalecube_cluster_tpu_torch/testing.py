@@ -146,6 +146,79 @@ def tile_edge_operands(n: int, s: int, f: int = 3, seed: int = 0) -> dict:
     return ops
 
 
+def shard_operands(nl: int, s: int, f: int = 3, seed: int = 0, row_base: int = 512,
+                   n_total: int | None = None, tile_edges: bool = False) -> dict:
+    """A seeded numpy operand set for the sparse core's shard mode
+    (``ops.sparse_core.sparse_core`` with ``row_base`` and sender
+    windows): :func:`random_operands` (or, with
+    ``tile_edges``, :func:`tile_edge_operands`) for one shard's ``nl`` rows,
+    whose members are ``row_base .. row_base + nl - 1`` of ``n_total``
+    (default ``row_base + nl``), the active lanes on distinct global
+    subjects with every fifth on a member of the block (own lanes; with
+    ``tile_edges`` also the block's first and last members and the member
+    before it on lanes beside the tile boundaries);
+    ``slab_windows`` / ``age_windows`` of ``f·nl`` random sender rows at
+    ages 0..120, and the routing ``ginv`` a random permutation of the
+    window blocks (each block feeds one receiver block on one channel, as
+    under the engine's identity routing ``c·ngl + j``)."""
+    make = tile_edge_operands if tile_edges else random_operands
+    ops = make(nl, s, f, seed=seed)
+    rng = np.random.default_rng(seed + 7)
+    n_total = row_base + nl if n_total is None else n_total
+    w = f * nl
+    lanes = np.flatnonzero(ops["slot_subj"] >= 0)
+    own = lanes[::5]
+    block = row_base + rng.choice(nl, min(own.size, nl), replace=False)
+    others = np.setdiff1d(np.arange(n_total), block)
+    subj = np.full(s, -1, np.int32)
+    subj[lanes] = rng.choice(others, lanes.size, replace=False)
+    subj[own[: block.size]] = block
+    if tile_edges:
+        # The block's first and last members, and the member just before
+        # it, on active lanes beside the tile boundaries (kept distinct).
+        special = [row_base, row_base + nl - 1] + ([row_base - 1] if row_base else [])
+        edges = [e for e in _tile_edges(s, TILE_LANES) if subj[e] >= 0]
+        for lane, sid in zip(edges, special):
+            hit = np.flatnonzero(subj == sid)
+            if hit.size:
+                subj[hit[0]] = subj[lane]
+            subj[lane] = sid
+    ops["slot_subj"] = subj.astype(np.int32)
+    ops["ginv"] = rng.permutation(w // SPARSE_GROUP).reshape(f, nl // SPARSE_GROUP).astype(
+        np.int32)
+    ops["slab_windows"] = _random_keys(rng, (w, s))
+    ops["age_windows"] = rng.integers(0, 121, (w, s)).astype(np.int8)
+    ops["row_base"] = np.int32(row_base)
+    return ops
+
+
+def stacked_shard_operands(shards: int, nl: int, s: int, f: int = 3, seed: int = 0,
+                           tile_edges: bool = False) -> dict:
+    """:func:`shard_operands` of ``shards`` shards of one cluster (shard z
+    holds members ``z·nl ..``), stacked on a leading axis as one launch
+    takes them (``row_base`` ``[shards]`` int32)."""
+    parts = [shard_operands(nl, s, f, seed=seed + z, row_base=z * nl, n_total=shards * nl,
+                            tile_edges=tile_edges) for z in range(shards)]
+    return {k: np.stack([p[k] for p in parts]) for k in parts[0]}
+
+
+#: The sparse core's positional operands, in order.
+CORE_OPERANDS = ("slab", "age", "susp", "slot_subj", "ginv", "rots", "edge_ok", "alive",
+                 "fd_slot", "sy_slot", "fd_key", "sy_key")
+
+
+def shard_core_args(ops: dict, device="cpu") -> tuple[tuple, dict]:
+    """``(positional operands, shard-mode keywords)`` of a
+    :func:`shard_operands` or :func:`stacked_shard_operands` set as tensors
+    on ``device``, as ``ops.sparse_core.sparse_core`` takes them."""
+    args = tuple(torch.from_numpy(np.asarray(ops[k])).to(device) for k in CORE_OPERANDS)
+    rb = ops["row_base"]
+    kw = dict(row_base=int(rb) if np.ndim(rb) == 0 else torch.from_numpy(rb).to(device),
+              slab_windows=torch.from_numpy(ops["slab_windows"]).to(device),
+              age_windows=torch.from_numpy(ops["age_windows"]).to(device))
+    return args, kw
+
+
 def persistent_operands(n: int, s: int, f: int = 3, k_max: int = 8, seed: int = 0) -> dict:
     """A seeded numpy operand set for ``ops.sparse_persistent.
     sparse_core_persistent``, drawn exactly as the JAX package's

@@ -23,6 +23,9 @@ fallback-committed view change and every join confirm:
 
 from __future__ import annotations
 
+import argparse
+import sys
+
 from scalecube_cluster_tpu_torch.obs.trace import (
     TK_FB_ACCEPT,
     TK_FB_PREPARE,
@@ -35,6 +38,7 @@ from scalecube_cluster_tpu_torch.obs.trace import (
     TK_VERDICT_DEAD,
     TK_VIEW_COMMIT,
     TK_VOTE,
+    load_events_jsonl,
 )
 
 #: Allowed ``cause`` kinds per link of the chain (the protocol's grammar).
@@ -219,3 +223,52 @@ def check_rapid_chains(events: list[dict]) -> list[str]:
         _, violations = walk_chain(by_pos, ev)
         out.extend(f"{label}: {v}" for v in violations)
     return out
+
+
+def format_chain(explained: dict) -> str:
+    """One explained chain as text, a line per link; a merged multi-shard
+    log (obs/trace.py::merge_shard_rings) shows each link's shard."""
+    v = explained["verdict"]
+    lines = [f"why {v['kind_name']}(subject={v['subject']}) at tick {v['tick']} "
+             f"by member {v['actor']}:"]
+    for ev in explained["chain"]:
+        shard = f" shard={ev['shard']}" if "shard" in ev else ""
+        lines.append(
+            f"  [{ev['i']:>5}] tick {ev['tick']:>5}  {ev['kind_name']:<14} "
+            f"actor={ev['actor']} subject={ev['subject']} cause={ev['cause']}{shard}"
+        )
+    lines += [f"  VIOLATION: {bad}" for bad in explained["violations"]]
+    if explained["complete"]:
+        lines.append("  => chain complete: rooted at its originating event")
+    return "\n".join(lines)
+
+
+def main(argv: list[str] | None = None) -> int:
+    """``python -m scalecube_cluster_tpu_torch.tools.trace_explain EVENTS
+    [--quiet]``: check C6 and the Rapid chains over an event JSONL
+    (``obs/trace.py::write_events_jsonl`` of a ring's decode or of a
+    merged sharded log). Exit 1 on any violation."""
+    ap = argparse.ArgumentParser(prog="trace_explain")
+    ap.add_argument("events", help="event JSONL from obs.trace.write_events_jsonl")
+    ap.add_argument("--max-chains", type=int, default=8,
+                    help="print at most this many chains (all are checked)")
+    ap.add_argument("--quiet", action="store_true",
+                    help="print only the summary lines and violations")
+    args = ap.parse_args(argv)
+    events = load_events_jsonl(args.events)
+    if not args.quiet:
+        heads = [e for e in events if e["kind"] == TK_VERDICT_DEAD][: args.max_chains]
+        for ev in heads:
+            print(format_chain(explain_verdict(events, ev)))
+    rc = 0
+    for name, violations in (("C6", check_c6(events)),
+                             ("rapid chains", check_rapid_chains(events))):
+        print(f"{name}: {len(violations)} violation(s)")
+        for v in violations:
+            print(f"  {v}")
+        rc = rc or int(bool(violations))
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -59,7 +59,8 @@ def test_sources_exist():
                    "serve/telemetry.py", "serve/load.py", "transport/__init__.py",
                    "transport/api.py", "transport/codec.py", "transport/message.py",
                    "transport/tcp.py", "native/__init__.py", "utils/__init__.py",
-                   "utils/address.py", "utils/ids.py", "utils/streams.py"):
+                   "utils/address.py", "utils/ids.py", "utils/streams.py",
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
     assert (PORT / "native" / "framing.c").is_file()

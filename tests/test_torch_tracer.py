@@ -126,7 +126,8 @@ def test_trace_emit_matches_jax(name):
 
 def test_ring_registers_match_jax():
     """``trace_reset_members`` and ``pad_trace_ring`` (its refusal to
-    shrink included); the sharded recorder raises in the port."""
+    shrink included); the sharded recorder's init equals the reference's,
+    and the single-device tick refuses it as the reference's does."""
     rng = np.random.default_rng(3)
     jr, tr = JTracer.init_trace_ring(16, 8), TTracer.init_trace_ring(16, 8, device="cpu")
     vals = rng.integers(-1, 8, 16).astype(np.int32)
@@ -139,10 +140,15 @@ def test_ring_registers_match_jax():
     assert_same_ring(jr, tr, "reset+pad")
     with pytest.raises(ValueError):
         TTracer.pad_trace_ring(tr, 8)
+    assert_same_ring(JTracer.init_shard_trace_rings(16, 8, 2),
+                     TTracer.init_shard_trace_rings(16, 8, 2, device="cpu"), "sharded init")
+    sharded = T.init_sparse_full_view(16, 128, trace_capacity=8, trace_shards=2, device="cpu")
+    assert isinstance(sharded.trace, TTracer.ShardTraceRing) and sharded.trace.shards == 2
     with pytest.raises(ValueError, match="ShardTraceRing"):
-        T.init_sparse_full_view(16, 128, trace_capacity=8, trace_shards=2, device="cpu")
-    with pytest.raises(ValueError, match="ShardTraceRing"):
-        TTracer.init_shard_trace_rings(16, 8, 2)
+        T.sparse_tick(port_params(sparse_params(16)), sharded, TPlan.uniform(device="cpu"))
+    for bad in ((16, 0, 2), (16, 8, 0)):
+        with pytest.raises(ValueError):
+            TTracer.init_shard_trace_rings(*bad, device="cpu")
 
 
 # ------------------------------------------------------ traced trajectory
