@@ -87,7 +87,7 @@ Phases, each of which must pass (any failure exits non-zero):
     exactly the ticks the CPU run routes to them; and XLA:CPU's ``exp``
     and the world's loss composition card == CPU on seeded operands;
 16. the scheduled sparse path at the bench width: n=32768, S=512, the
-    kernel route, 48-tick chunks, one warm-up and 240 collected ticks under
+    kernel route, 48-tick chunks, one warm-up and 96 collected ticks under
     a 3-segment schedule (5% loss; the same with a 2-zone 400 ms brownout;
     5% loss) and one more uncollected chunk, 64 kills at tick 10, 32
     restarts at tick 100, and
@@ -99,7 +99,8 @@ Phases, each of which must pass (any failure exits non-zero):
     in 40-tick chunks (the last collected) under the ``--geo`` brownout,
     then the partition-recovery cut (30% minority), then 5% loss; member 7
     killed at tick 5 and restarted at tick 120; the kernel launched on every
-    tick the tick takes its fast path; then the ``--geo 10240`` bench row;
+    tick the tick takes its fast path; then the ``--geo 10240`` bench row
+    (one timed chunk a world);
 18. the flight recorder and elastic membership, card vs CPU at n=1024,
     S=256: a traced 60-tick churn timeline on the XLA chain (kills, a
     restart, 5% loss, a 2-zone brownout; host kills and restarts between
@@ -118,9 +119,10 @@ Phases, each of which must pass (any failure exits non-zero):
     promoted rows; ms/tick before and after, the promotion's wall time and
     the peak device memory;
 20. the flight recorder at the sparse width: the ``--tracer-overhead
-    32768`` rung at S=512 (XLA chain, ring 1 << 19), the synchronising CUDA
-    calls of one traced and one untraced chunk (the traced one makes no
-    more), and a 528-tick run with a 1 << 27 ring whose decoded chains pass
+    32768`` rung at S=512 (XLA chain, ring 1 << 19, one timed chunk a
+    side), the synchronising CUDA calls of one traced and one untraced
+    chunk (the traced one makes no more), two interleaved pairs of
+    chunks (the order flipped in the second), and a 528-tick run with a 1 << 27 ring whose decoded chains pass
     the C6 walk, every DEAD verdict's chain ending at a probe;
 21. both fused cores over a leading universe axis (the grid's third
     axis): ``sparse_core`` at B=4, n=32768, S=512 and at B=3, n=1024,
@@ -137,12 +139,12 @@ Phases, each of which must pass (any failure exits non-zero):
     ``ensemble_report`` rows equal;
 23. the sparse ensemble at the main path's width: B=4 universes of
     n=32768, S=512 through the kernel (member 7 killed in each, 5% loss),
-    one warm-up and four timed 48-tick chunks with
+    one warm-up and two timed 48-tick chunks with
     ``ensemble_writeback_free`` between them, then one collected chunk —
     ``sparse_core`` launched once a tick for the whole batch; ms/tick,
     universes·member·rounds/s, peak memory, then launches a tick and the
-    device idle share under the profiler; and the ``--ensemble 16 1024``
-    rung beside the same rung at B=1;
+    device idle share under the profiler over 24 ticks; and the ``--ensemble 16 1024``
+    rung beside the same rung at B=1 (one timed chunk each);
 24. the Rapid engine (sim/rapid.py, no kernel of its own), card vs CPU at
     n=16 and n=64 through the split-vote schedule of
     tests/test_rapid_fallback.py: the bare fast path (parked), the fallback
@@ -181,8 +183,8 @@ Phases, each of which must pass (any failure exits non-zero):
     admitted a second, the promotion's wall time, ms/tick before and
     after it, peak memory, a certified zero of dropped joins;
 30. the wire: ``native/framing.c`` built with ``cc`` and loaded, the
-    ``--load`` harness (32 producers, 8 hostile, churn) against a session
-    on the card at n=1024 (4-tick launches, 50 ms of the event loop for
+    ``--load`` harness (32 producers, 8 hostile, 200 events each, churn)
+    against a session on the card at n=1024 (4-tick launches, 50 ms of the event loop for
     the producers between them) with every conservation verdict true, and
     a live session's ``serve/metrics`` poll equal to its Prometheus scrape;
 31. fleets, card vs CPU (serve/fleet.py through testlib/fleet.py's
@@ -196,7 +198,7 @@ Phases, each of which must pass (any failure exits non-zero):
 32. the fleet main path: B=4 tenants × n=32768 × S=512 through the kernel
     (host write-back, the shared 5% loss plan, member 7 killed in each, 4
     gossip events a tick per tenant, k=48, C=8, collect=False), a warm-up
-    round then 6 timed rounds interleaved with one solo session over
+    round then 3 timed rounds interleaved with one solo session over
     tenant 0's stream: ms/tick, tenant·member·rounds/s, events/s,
     per-tenant latency p50/p95/p99, ``fleet_vs_solo_ratio``, peak memory,
     synchronising calls a round, one ``sparse_core`` launch a tick for the
@@ -209,7 +211,7 @@ Phases, each of which must pass (any failure exits non-zero):
     framing, phase 30's launch geometry — every victim tenant's events
     conserved, none shed, the hostile tenant's rejects counted;
 35. the kernel table as one JSON line, the card's name and power limit,
-    and the device line last; phases 36–38 run before it:
+    and the device line last; phases 36–42 run before it:
 36. the sparse core's shard mode (csrc/sparse_core.cu, the explicit-SPMD
     engine's launch): d=8 shards of n=32768, S=512, f=3 in one launch,
     B=2 x d=4 at n=1024, S=256, and tile edges at S = 128 and 384 with the
@@ -223,15 +225,52 @@ Phases, each of which must pass (any failure exits non-zero):
     kernel-route tick; a traced XLA-core run card == CPU, merged with
     ``merge_shard_rings`` and walked (C6, cross-shard chains);
 38. the sharded path at width, ``--shard-map 8 32768 --pallas``: a warm-up
-    and four 48-tick chunks interleaved with the single-device engine at
+    and two 48-tick chunks interleaved with the single-device engine at
     the same parameters — ms/tick of both, member·rounds/s, peak memory,
     one ``sparse_core`` launch a tick for the 8 shards, synchronising
     calls a tick, the exchange's bytes a tick; the final state and four
-    collected ticks bit-equal to the single-device run.
+    collected ticks bit-equal to the single-device run;
+39. the chaos harness (testlib/chaos.py; no kernel on its path: the
+    dense delivery and the sparse core run their XLA chains), card vs CPU:
+    ``chaos_soak(range(8), 24, ALL_ENGINES, ensemble=True)``, the same with
+    ``ensemble=False`` for seeds 0-1, ``chaos_race(range(4), 24)``,
+    ``geo_chaos_matrix((0, 1, 2), 16)`` (brownout3, oneway, split2; one
+    seed a task, the rows in seed order) and
+    ``grow_trial(0, 32, 2)`` — every row equal but its wall fields, every
+    row ok, every kernel count 0;
+40. the chaos CLI at its defaults (10 seeds, n=24, dense and sparse as
+    one ensemble each) and with ``--race --seeds 12``, through its ``main``:
+    every line and the exit status card == CPU; the
+    defaults exit 0, the race exits 1 with its one known violation (the
+    Rapid fallback trim of seed 10 misses C7 in the JAX package too,
+    ROADMAP Queue C); the walls, universe·ticks/s;
+41. the BASELINE grid: ``run_all("small")`` on the card equal to the CPU's
+    but ``member_rounds_per_sec``, with tests/test_experiments.py's
+    assertions; then ``run_all("large")`` at its one-card widths (join and
+    lossy n=1000, partition n=10000, dense churn n=8192, sparse scale and
+    churn n=32768) — each row, wall, ticks, ms/tick, member·rounds/s and
+    peak memory; partition detected, healed convergence 1.0, no false
+    deaths, the slot overflow counted;
+42. the sweep CLI (4 seeds x 3 suspicion multipliers x 2 fan-out caps)
+    on the card equal to its CPU run on every row, the summary line and
+    the exit status; the load CLI at 32 producers, every conservation
+    verdict true.
 
-Each path (the main paths, the k-sweep, the profile, the probes) runs
-with every kernel count set to 0 just before it and read just after. There is no CPU fallback: without a CUDA device the
-script fails.
+Order and processes: this process runs phases 1-14, 16, 17, 19-21, 23,
+25, 26, 28-30, 32-34, 36 and 38 in that order, alone on the card, so every
+kernel time and every path's wall is taken with nothing else running. The
+checks that time nothing then run in one pool of spawned processes, each
+with its own CUDA context: the card-vs-CPU phases 15, 18, 22, 24, 27, 31
+and 37 (each runs both sides itself) and the card and CPU runs of phases
+39-42 but the large grid; their walls are taken beside one another. The
+pool is closed before the large grid of phase 41, which runs last, alone
+on the card again.
+
+Each path (the main paths, the k-sweep, the profile, the probes, the
+experiments of phases 39-42) runs with every kernel count set to 0 just before
+it and read just after (a pool worker's counts are its own process's); a
+``[clock]`` line after each group of phases gives the time since the
+start. There is no CPU fallback: without a CUDA device the script fails.
 """
 
 from __future__ import annotations
@@ -1433,7 +1472,7 @@ def phase_scheduled_sparse(torch):
     )
     from scalecube_cluster_tpu_torch.sim.topology import LinkWorld
 
-    n, s, chunk, reps = 32768, 512, 48, 5
+    n, s, chunk, reps = 32768, 512, 48, 2
     killed = [7 + 512 * i for i in range(64)]
     b = (
         ScheduleBuilder(n)
@@ -1592,7 +1631,7 @@ def phase_dense_timeline(torch):
     say(f"[17] collected chunk: convergence {float(tr['convergence'][-1]):.6f}, zone_intra_conv "
         f"{conv[-1].tolist()}, plan_dirty {int(tr['plan_dirty'].sum())} of {chunk}, "
         f"n_suspected {int(tr['n_suspected'][-1])}")
-    geo = measure_geo(n)
+    geo = measure_geo(n, reps=1)
     say(f"[17] --geo {n}: {json.dumps(geo)}")
     return counts["tick_core"], {"chunk_ms_per_tick": [c * 1e3 / chunk for c in per_chunk],
                                  "peak_gib": peak_gib, "geo": geo}
@@ -1863,7 +1902,7 @@ def phase_recorder_full_width(torch):
 
     n, s, chunk = 32768, 512, 48
     reset_counts()
-    row, _ = measure_tracer_overhead(n, slot_budget=s)
+    row, _ = measure_tracer_overhead(n, slot_budget=s, reps=1)
     timing_counts = read_counts()
     say(f"[20] --tracer-overhead {n} S={s}: tracer_overhead {row['tracer_overhead']:.4f}, "
         f"{row['ms_per_tick_off']:.3f} ms/tick off, {row['ms_per_tick_on']:.3f} on, "
@@ -1893,7 +1932,7 @@ def phase_recorder_full_width(torch):
     # The recorder's cost with the host's drift spread over both sides:
     # untraced and traced chunks alternate, the order flipped every pair.
     ratios = []
-    for k in range(6):
+    for k in range(2):
         wall = {}
         for label in ("off", "on")[:: 1 if k % 2 == 0 else -1]:
             t0 = time.perf_counter()
@@ -1902,8 +1941,8 @@ def phase_recorder_full_width(torch):
             wall[label] = time.perf_counter() - t0
         ratios.append(wall["on"] / wall["off"])
     ratios.sort()
-    interleaved = (ratios[2] + ratios[3]) / 2
-    say(f"[20] tracer_overhead interleaved over 6 pairs of {chunk}-tick chunks: median "
+    interleaved = (ratios[0] + ratios[1]) / 2
+    say(f"[20] tracer_overhead interleaved over 2 pairs of {chunk}-tick chunks: median "
         f"{interleaved:.4f}, pairs {', '.join(f'{r:.4f}' for r in ratios)}")
     row = {**row, "tracer_overhead_interleaved": interleaved, "interleaved_ratios": ratios}
     del states
@@ -2146,6 +2185,10 @@ def phase_ensemble_card_vs_cpu(torch):
     return launches["dense fused route"], sparse_launches["sparse kernel route"]
 
 
+#: Ticks of phase 23's profile.
+PROFILE_TICKS = 24
+
+
 def phase_sparse_ensemble_full_width(torch):
     """Phase 23: the sparse ensemble through the kernel at the sparse main
     path's width (B=4), then the ``--ensemble`` rung at B=16 and B=1."""
@@ -2156,7 +2199,7 @@ def phase_sparse_ensemble_full_width(torch):
     from scalecube_cluster_tpu_torch.sim.faults import FaultPlan
     from scalecube_cluster_tpu_torch.sim.sparse import SparseParams
 
-    b, n, s, chunk, reps = 4, 32768, 512, 48, 4
+    b, n, s, chunk, reps = 4, 32768, 512, 48, 2
     params = SparseParams.for_n(n, slot_budget=s, in_scan_writeback=False, pallas_core=True)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2214,17 +2257,17 @@ def phase_sparse_ensemble_full_width(torch):
         if isinstance(getattr(states, f.name), torch.Tensor)})]
 
     def run(i):
-        ens.run_ensemble_sparse_ticks(params, snap[i], plans, chunk, collect=False)
+        ens.run_ensemble_sparse_ticks(params, snap[i], plans, PROFILE_TICKS, collect=False)
 
-    prof = _device_profile(run, chunk)
+    prof = _device_profile(run, PROFILE_TICKS)
     del snap, states
-    say(f"[23] profile of {chunk} ticks: {prof['wall_ms_per_tick']:.3f} ms/tick, device busy "
+    say(f"[23] profile of {PROFILE_TICKS} ticks: {prof['wall_ms_per_tick']:.3f} ms/tick, device busy "
         f"{prof['device_busy_ms_per_tick']:.3f} ms/tick, idle share "
         f"{prof['device_idle_share']:.4f}, {prof['device_launches_per_tick']:.3f} launches a "
         f"tick")
     rung = {}
     for bb in (16, 1):
-        rung[bb] = measure_ensemble(bb, 1024)
+        rung[bb] = measure_ensemble(bb, 1024, reps=1)
         say(f"[23] --ensemble {bb} 1024: {rung[bb]['value']:.1f} universes·member·rounds/s, "
             f"{rung[bb]['per_universe']:.1f} per universe, {rung[bb]['ms_per_tick']:.3f} "
             "ms/tick")
@@ -2755,7 +2798,7 @@ def phase_serving_wire(torch):
     reset_counts()
     k = 4
     row = measure_load(32, 1024, pallas_core=True, batch_ticks=k, capacity=256, settle_s=0.05,
-                       device="cuda")
+                       events_per_producer=200, device="cuda")
     launches = read_counts()["sparse_core"]
     if not (row["conservation_ok"] and row["rejected_ok"] and row["bounded_ok"]) or row[
             "producer_errors"] or row["pending"]:
@@ -2862,7 +2905,7 @@ def phase_fleet_main_path(torch):
     """Phase 32: the fleet main path — B=4 tenants × n=32768 × S=512 through
     the kernel (host write-back, the shared 5% loss plan, member 7 killed in
     each tenant, 4 gossip events a tick per tenant, k=48, C=8,
-    collect=False): one warm-up round, then 6 timed rounds interleaved with
+    collect=False): one warm-up round, then 3 timed rounds interleaved with
     one solo session over tenant 0's stream."""
     from scalecube_cluster_tpu_torch.bench import (
         fleet_bridges,
@@ -2870,7 +2913,7 @@ def phase_fleet_main_path(torch):
         serve_gossip_stream,
     )
 
-    b, n, s, k, c, rounds = 4, 32768, 512, 48, 8, 6
+    b, n, s, k, c, rounds = 4, 32768, 512, 48, 8, 3
     _free_earlier_phases(torch)
     fleet, solo = fleet_bridges(b, n, k, c, slot_budget=s, pallas_core=True,
                                 in_scan_writeback=False, kill=7, device="cuda")
@@ -3331,6 +3374,425 @@ def phase_shard_map_path(torch, n=32768, d=8, chunk=48, reps=4, device="cuda"):
     return sharded_launches, row
 
 
+# ------------------------------------------ phases 39-42: the experiments
+#: Wall-clock fields of the experiments' rows, left out of card-vs-CPU checks.
+WALL_FIELDS = ("promotion_wall_ms", "member_rounds_per_sec")
+#: Phase 39's chaos sections, in order (testlib/chaos.py at these sizes).
+CHAOS_SECTIONS = ("soak_ensemble", "soak_loop", "race", "geo", "grow")
+#: Geo seeds whose draws cover split2, brownout3 and oneway at n=16 (seed
+#: 0 brownout3, 1 oneway, 2 split2; tests/test_torch_chaos.py pins them).
+GEO_SEEDS = (0, 1, 2)
+#: Phase 42's sweep: 4 seeds x 3 suspicion multipliers x 2 fan-out caps,
+#: as one ensemble per engine at the CLI's defaults (n=24, dense and
+#: sparse, the chaos trial length).
+SWEEP_ARGS = ["--seeds", "4", "--suspicion-mults", "0.75,1.0,1.5", "--fanout-caps", "none,2"]
+#: Processes of the pool that runs the checks that time nothing, after
+#: phase 38 (one torch thread each; see ``start_checks``).
+CHECK_WORKERS = 8
+
+
+def chaos_section(name, device, geo_seed=None):
+    """One of phase 39's chaos sections on ``device``: ``(rows, wall_s)``.
+    The geo matrix runs one seed a call (``geo_seed``): it is a loop over
+    the seeds, so the seeds' rows in order are the matrix's."""
+    from scalecube_cluster_tpu_torch.testlib import chaos as C
+
+    t0 = time.perf_counter()
+    if name == "soak_ensemble":
+        rows = C.chaos_soak(range(8), 24, C.ALL_ENGINES, ensemble=True, device=device)
+    elif name == "soak_loop":
+        rows = C.chaos_soak(range(2), 24, C.ALL_ENGINES, ensemble=False, device=device)
+    elif name == "race":
+        rows = C.chaos_race(range(4), 24, device=device)
+    elif name == "geo":
+        rows = C.geo_chaos_matrix((geo_seed,), 16, device=device)
+    elif name == "grow":
+        rows = [C.grow_trial(0, 32, 2, device=device)]
+    else:
+        raise ValueError(f"unknown chaos section {name!r}")
+    return rows, time.perf_counter() - t0
+
+
+def _captured(main, argv):
+    """``main(argv)`` with its standard output captured: ``(status,
+    stdout)``."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        status = main(argv)
+    return status, buf.getvalue()
+
+
+def _stamp_free(row):
+    """An export row without ``run_metadata``'s stamps and wall fields."""
+    from scalecube_cluster_tpu_torch.obs.export import run_metadata
+
+    stamps = set(run_metadata(commit="x", platform="cpu")) - {"n"}
+    return {k: v for k, v in row.items() if k not in stamps and k not in WALL_FIELDS}
+
+
+def sweep_run(device):
+    """Phase 42's sweep through ``experiments/sweep.py::main`` on
+    ``device``: ``(status, stdout, rows without stamps, wall_s)``."""
+    import tempfile
+    from pathlib import Path
+
+    from scalecube_cluster_tpu_torch.experiments import sweep
+
+    argv = [*SWEEP_ARGS, *(["--cpu"] if device == "cpu" else [])]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "sweep.jsonl"
+        t0 = time.perf_counter()
+        status, stdout = _captured(sweep.main, [*argv, "--out", str(out)])
+        wall = time.perf_counter() - t0
+        rows = [_stamp_free(json.loads(line)) for line in out.read_text().splitlines()]
+    return status, stdout, rows, wall
+
+
+def load_cli_run(device):
+    """Phase 42's load CLI (``--producers 32``) through ``main`` on
+    ``device``: ``(status, stdout, wall_s)``. The transport logs each
+    hostile frame it drops (thousands of lines at 10 hostile producers; the
+    audit counts them), so its logger is quieted for the run."""
+    import logging
+
+    from scalecube_cluster_tpu_torch.experiments import load
+
+    transport_log = logging.getLogger("scalecube_cluster_tpu_torch.transport.tcp")
+    level = transport_log.level
+    transport_log.setLevel(logging.ERROR)
+    try:
+        t0 = time.perf_counter()
+        status, stdout = _captured(
+            load.main, ["--producers", "32", *(["--cpu"] if device == "cpu" else [])])
+        return status, stdout, time.perf_counter() - t0
+    finally:
+        transport_log.setLevel(level)
+
+
+def grid_scenario(scale, i, device):
+    """Scenario ``i`` of the ``scale`` grid on ``device``: ``(name, row,
+    wall_s)``."""
+    from scalecube_cluster_tpu_torch.experiments.scenarios import grid
+
+    name, fn = grid(scale, device)[i]
+    t0 = time.perf_counter()
+    row = fn()
+    return name, row, time.perf_counter() - t0
+
+
+def _phase(fn):
+    """An earlier card-vs-CPU phase, ``fn(torch)``, in a pool worker."""
+    import torch
+
+    return fn(torch)
+
+
+def _untimed(fn, *args):
+    """``fn(*args)`` in a worker of the check pool, on one torch thread:
+    ``(result, the kernel counts after it)``. A phase's ``fail`` becomes
+    an exception here (SystemExit would end the worker)."""
+    import torch
+
+    torch.set_num_threads(1)
+    reset_counts()
+    try:
+        out = fn(*args)
+    except SystemExit:
+        raise RuntimeError(f"{fn.__name__}{args}: failed (its FAIL line is above)") from None
+    return out, read_counts()
+
+
+def start_checks():
+    """Start the checks that time nothing in one pool of ``CHECK_WORKERS``
+    spawned processes, longest first: the earlier card-vs-CPU phases (15,
+    18, 22, 24, 27, 31, 37; each runs both sides itself and counts its
+    own launches) and phases 39-42's runs on the card and on the CPU but
+    the large grid. Returns ``(pool, results)``: the pool is the caller's
+    to close; ``results`` maps each task ``(fn, *args)`` to its
+    AsyncResult."""
+    import multiprocessing
+
+    geo = [(chaos_section, "geo", dev, seed) for dev in ("cuda", "cpu") for seed in GEO_SEEDS]
+    longest = [(load_cli_run, "cuda"), *geo[:3], (chaos_section, "soak_loop", "cuda"),
+               (chaos_section, "soak_ensemble", "cuda"), *geo[3:]]
+    rest = [*((_phase, fn) for fn in CHECK_PHASES),
+            *((grid_scenario, "small", i, dev) for dev in ("cuda", "cpu") for i in range(6)),
+            *((chaos_cli_run, label, dev) for dev in ("cuda", "cpu") for label in CHAOS_CLI_RUNS),
+            *((sweep_run, dev) for dev in ("cuda", "cpu")),
+            *((chaos_section, name, dev) for dev in ("cuda", "cpu") for name in CHAOS_SECTIONS
+              if name != "geo")]
+    tasks = longest + [task for task in rest if task not in longest]
+    pool = multiprocessing.get_context("spawn").Pool(CHECK_WORKERS)
+    return pool, {task: pool.apply_async(_untimed, task) for task in tasks}
+
+
+def _got(results, tag, *task):
+    """A check's ``(result, counts)`` from the pool, or the phase fails."""
+    try:
+        return results[task].get(timeout=1500)
+    except Exception as exc:  # the worker's exception, re-raised here
+        fail(f"{tag}: {task[0].__name__}{task[1:]} failed in the check pool: {exc!r}")
+
+
+def _no_launches(tag, counts):
+    """The experiments take no kernel route (pallas_delivery and pallas_core
+    are off): every count must be 0."""
+    launched = {k: v for k, v in counts.items() if v}
+    if launched:
+        fail(f"{tag}: kernels launched on a path with no kernel: {launched}")
+
+
+def _same_rows(tag, card, cpu):
+    card = [_stamp_free(r) for r in card]
+    cpu = [_stamp_free(r) for r in cpu]
+    if len(card) != len(cpu):
+        fail(f"{tag}: {len(card)} card rows against {len(cpu)} CPU rows")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        if a != b:
+            keys = sorted(k for k in set(a) | set(b) if a.get(k) != b.get(k))
+            fail(f"{tag}: row {i} differs on {keys[:6]}: card {[a.get(k) for k in keys[:3]]}, "
+                 f"CPU {[b.get(k) for k in keys[:3]]}")
+
+
+def phase_chaos_card_vs_cpu(results):
+    """Phase 39: the chaos harness, card vs CPU — the ensemble soak (8 seeds,
+    every engine), the loop soak (seeds 0-1), the race (4 seeds), the geo
+    matrix (seeds 0-2: brownout3, oneway, split2) and a grow trial (32 ->
+    128 rows): every row equal but its wall fields, every row ok, no
+    kernel launched."""
+    from scalecube_cluster_tpu_torch.testlib.chaos import chaos_params, trial_ticks
+
+    def section(name, device):
+        """The section's rows, wall and kernel counts (the geo matrix's
+        seeds in order, their walls and counts summed)."""
+        tasks = [(name, device, s) for s in GEO_SEEDS] if name == "geo" else [(name, device)]
+        rows, wall, counts = [], 0.0, {}
+        for task in tasks:
+            (r, w), c = _got(results, "[39]", chaos_section, *task)
+            rows += r
+            wall += w
+            counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+        return rows, wall, counts
+
+    walls = {}
+    for name in CHAOS_SECTIONS:
+        rows, walls[name], counts = section(name, "cuda")
+        _no_launches(f"[39] {name}", counts)
+        cpu_rows, cpu_wall, _ = section(name, "cpu")
+        _same_rows(f"[39] {name} card vs CPU", rows, cpu_rows)
+        bad = [r.get("reproducer") for r in rows if not r["ok"]]
+        if bad:
+            fail(f"[39] {name}: {len(bad)} violations: {bad[:3]}")
+        extra = ""
+        if name == "soak_ensemble":
+            extra = (f", {8 * 4 * trial_ticks(chaos_params(24)) / walls[name]:.1f} "
+                     "universe·ticks/s")
+        if name == "geo":
+            extra = f", one pool task a seed ({len(GEO_SEEDS)}), walls summed"
+        if name == "grow":
+            extra = f", promotions {rows[0]['promotions']}, wall ms {rows[0]['promotion_wall_ms']}"
+        say(f"[39] {name}: {len(rows)} rows card == CPU, all ok, kernel counts all 0; card "
+            f"{walls[name]:.1f} s, CPU {cpu_wall:.1f} s (in the check pool){extra}")
+    return walls
+
+
+#: Phase 40's chaos CLI runs: the defaults (10 seeds, n=24, dense and
+#: sparse as one ensemble each) and the race over 12 seeds.
+CHAOS_CLI_RUNS = {"defaults": [], "race": ["--race", "--seeds", "12"]}
+#: The race's known violation: the Rapid fallback trim of seed 10 (n=24)
+#: stays at convergence 0.9236 after 167 clean ticks, past the C7 bound of
+#: 154, in the JAX package exactly as in the port (ROADMAP Queue C).
+KNOWN_RACE_VIOLATIONS = {
+    "CHAOS-REPRO seed=10 n=24 engine=rapid_fb ticks=239 digest=414a581abcf7":
+        "C7-heal-convergence",
+}
+
+
+def chaos_cli_run(label, device):
+    """One of phase 40's chaos CLI runs through ``main`` on ``device``:
+    ``(status, stdout, wall_s)``."""
+    from scalecube_cluster_tpu_torch.experiments import chaos as cli
+
+    argv = [*CHAOS_CLI_RUNS[label], *(["--cpu"] if device == "cpu" else [])]
+    t0 = time.perf_counter()
+    status, stdout = _captured(cli.main, argv)
+    return status, stdout, time.perf_counter() - t0
+
+
+def phase_chaos_cli(results):
+    """Phase 40: ``python -m scalecube_cluster_tpu_torch.experiments.chaos``
+    at its defaults and with ``--race --seeds 12``, run through ``main``:
+    the card's lines and exit status equal the CPU's; the defaults exit 0,
+    the race exits with its one known violation."""
+    from scalecube_cluster_tpu_torch.testlib.chaos import chaos_params, trial_ticks
+
+    walls = {}
+    for label, argv in CHAOS_CLI_RUNS.items():
+        (status, stdout, walls[label]), counts = _got(results, "[40]", chaos_cli_run, label,
+                                                      "cuda")
+        _no_launches(f"[40] {label}", counts)
+        (c_status, c_stdout, c_wall), _ = _got(results, "[40]", chaos_cli_run, label, "cpu")
+        if (status, stdout) != (c_status, c_stdout):
+            fail(f"[40] chaos CLI {label}: card exit {status} and lines differ from the CPU's "
+                 f"(exit {c_status})")
+        lines = stdout.splitlines()
+        summary = json.loads(lines[-1])
+        failing = {line.split(" :: ")[0].strip().removeprefix("rapid: ").removeprefix(
+            "swim: ").removeprefix("FAIL "): line.split(" :: ")[1].split(":")[0]
+            for line in lines if " :: " in line}
+        expect = KNOWN_RACE_VIOLATIONS if label == "race" else {}
+        if failing != expect or status != len(expect) or summary["violations"] != len(expect):
+            fail(f"[40] chaos CLI {label}: exit {status}, violations {failing}, expected "
+                 f"{expect}")
+        say(f"[40] chaos CLI {' '.join(argv) or '(defaults)'}: card == CPU on every line, exit "
+            f"{status}, {summary}; card {walls[label]:.1f} s, CPU {c_wall:.1f} s (in the check "
+            f"pool); kernel counts all 0" + (f"; the known violation {failing}" if failing else ""))
+    ticks = trial_ticks(chaos_params(24))
+    say(f"[40] the default ensemble soak: 20 universes x {ticks} ticks, "
+        f"{20 * ticks / walls['defaults']:.1f} universe·ticks/s")
+    return walls
+
+
+def large_grid_ticks():
+    """The ticks each scenario of ``grid("large")`` steps, from its
+    arguments and experiments/scenarios.py's rules: ``run_chunked`` steps
+    whole 50-tick chunks, the sparse scenarios whole 48-tick chunks after
+    a warm-up chunk."""
+    from scalecube_cluster_tpu_torch.sim.params import SimParams
+    from scalecube_cluster_tpu_torch.sim.sparse import SparseParams
+
+    def whole(ticks, chunk):
+        return -(-ticks // chunk) * chunk
+
+    p = SimParams.from_cluster_config(10_000)
+    hold = p.suspicion_ticks + 2 * p.periods_to_spread + p.periods_to_sweep + 150
+    q = SparseParams.for_n(32768, in_scan_writeback=False).base
+    scale = (48 + max(whole(q.fd_period_ticks * 8 + q.periods_to_spread, 48) - 48, 48)
+             + whole(q.suspicion_ticks + q.periods_to_sweep + 60, 48))
+    return {"join": whole(400, 50), "lossy_suspicion": whole(600, 50),
+            "partition_recovery": whole(hold + 3 * p.sync_period_ticks + 200, 50),
+            "churn": 400, "sparse_scale_failure": scale, "sparse_churn": 48 + 480}
+
+
+def _grid_facts(tag, rows, small):
+    """The protocol facts the grid must show (tests/test_experiments.py's
+    assertions on the small grid; the partition, loss and overflow facts
+    on the large one)."""
+    r = {row["scenario"]: row for row in rows}
+    checks = [
+        ("partition detected", r["partition_recovery"]["partition_detected"]),
+        ("healed convergence 1.0", r["partition_recovery"]["healed_convergence"] == 1.0),
+        ("no false deaths under loss", r["lossy_suspicion"]["false_deaths"] == 0),
+        ("slot overflow counted", "slot_overflow_total" in r["sparse_churn"]),
+    ]
+    if small:
+        churn = r["sparse_churn"]
+        checks += [
+            ("join converged", r["join"]["converged"]),
+            ("lossy convergence > 0.95", r["lossy_suspicion"]["final_convergence"] > 0.95),
+            ("churn convergence > 0.9", r["churn"]["final_convergence"] > 0.9),
+            ("members churned down", churn["churned_down"] > 0),
+            ("slots under half the budget", churn["active_slots"] < churn["slot_budget"] // 2),
+            ("no slot overflow", churn["slot_overflow_total"] == 0.0),
+        ]
+    bad = [what for what, ok in checks if not ok]
+    if bad:
+        fail(f"{tag}: {bad}: {json.dumps(rows)}")
+
+
+def phase_grid_small(results):
+    """Phase 41, first half: ``run_all("small")``'s scenarios on the card
+    equal to the CPU's in every field but the wall-clock one, with
+    tests/test_experiments.py's assertions."""
+    card, cpu = [], []
+    for i in range(6):
+        (name, row, wall), counts = _got(results, "[41]", grid_scenario, "small", i, "cuda")
+        _no_launches(f"[41] small {name}", counts)
+        card.append((row, wall))
+        (_, c_row, _), _ = _got(results, "[41]", grid_scenario, "small", i, "cpu")
+        cpu.append(c_row)
+    _same_rows("[41] small grid card vs CPU", [row for row, _ in card], cpu)
+    _grid_facts("[41] small grid", [row for row, _ in card], small=True)
+    say(f"[41] small grid: 6 rows card == CPU but member_rounds_per_sec; "
+        f"{sum(w for _, w in card):.1f} s on the card (in the check pool); "
+        "tests/test_experiments.py's assertions hold; kernel counts all 0")
+
+
+def phase_grid_large(torch):
+    """Phase 41, second half: ``run_all("large")``'s scenarios at their
+    one-card widths, one after another with this process alone on the
+    card: each row, wall, ticks, ms/tick with set-up, member·rounds/s and
+    peak memory; the protocol facts."""
+    from scalecube_cluster_tpu_torch.experiments.scenarios import grid
+
+    ticks = large_grid_ticks()
+    rows, total = [], 0.0
+    for name, fn in grid("large", "cuda"):
+        _free_earlier_phases(torch)
+        reset_counts()
+        t0 = time.perf_counter()
+        row = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _no_launches(f"[41] large {name}", read_counts())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        rate = row.get("member_rounds_per_sec")
+        say(f"[41] large {name} n={row['n']}: {wall:.2f} s, {ticks[name]} ticks, "
+            f"{wall * 1e3 / ticks[name]:.3f} ms/tick with set-up"
+            + (f", {rate} member·rounds/s (timed chunks)" if rate is not None else "")
+            + f", peak {peak:.3f} GiB; row {json.dumps(row)}")
+        rows.append(row)
+        total += wall
+    _grid_facts("[41] large grid", rows, small=False)
+    say(f"[41] large grid: {total:.1f} s on the card; partition detected, healed convergence "
+        "1.0, false deaths 0; kernel counts all 0")
+    return rows
+
+
+def phase_sweep(results):
+    """Phase 42, first half: the sweep CLI on the card equal to its CPU
+    run (every population and universe row, the summary line, the exit
+    status)."""
+    (status, stdout, rows, wall), counts = _got(results, "[42]", sweep_run, "cuda")
+    _no_launches("[42] sweep", counts)
+    (c_status, c_stdout, c_rows, c_wall), _ = _got(results, "[42]", sweep_run, "cpu")
+    if (status, stdout) != (c_status, c_stdout):
+        fail(f"[42] sweep: card exit {status} / CPU {c_status}; stdout card {stdout!r} CPU "
+             f"{c_stdout!r}")
+    _same_rows("[42] sweep card vs CPU", rows, c_rows)
+    if status != 0:
+        fail(f"[42] sweep: {status} universes failed certification")
+    say(f"[42] sweep {' '.join(SWEEP_ARGS)}: {len(rows)} rows (2 populations, 2 x 24 "
+        f"universes) card == CPU, exit 0; card {wall:.1f} s, CPU {c_wall:.1f} s (in the check "
+        f"pool); kernel counts all 0; " + stdout.splitlines()[-1])
+
+
+def phase_load(results):
+    """Phase 42, second half: the load CLI at 32 producers on the card,
+    every conservation verdict true."""
+    (status, stdout, wall), counts = _got(results, "[42]", load_cli_run, "cuda")
+    lines = stdout.splitlines()
+    verdicts = json.loads(lines[-1])
+    if status != 0 or not (verdicts["conservation_ok"] and verdicts["rejected_ok"]
+                           and verdicts["bounded_ok"]) or verdicts["producer_errors"]:
+        fail(f"[42] load CLI: exit {status}, {lines[-2:]}")
+    _no_launches("[42] load", counts)
+    say(f"[42] load CLI --producers 32: exit 0 in {wall:.1f} s (in the check pool); "
+        f"{lines[-2]}; {lines[-1]}; kernel counts all 0")
+
+
+#: The earlier phases that check the card against the CPU and time
+#: nothing: they run in the check pool after phase 38.
+CHECK_PHASES = (
+    phase_timelines_card_vs_cpu, phase_recorder_elastic_card_vs_cpu,
+    phase_ensemble_card_vs_cpu, phase_rapid_card_vs_cpu, phase_serving_card_vs_cpu,
+    phase_fleet_card_vs_cpu, phase_shard_card_vs_cpu,
+)
+
+
 def _kernel_entry(name, source, replaces, launches, row, checked_in, by_path=None,
                   batched=None, shard_mode=None):
     entry = {
@@ -3374,45 +3836,88 @@ def main() -> int:
     from scalecube_cluster_tpu_torch.tools.probe_kernels import PROBES
 
     t_start = time.perf_counter()
+
+    def clock(label):
+        say(f"[clock] after {label}: {time.perf_counter() - t_start:.1f} s")
+
     card = phase_card(torch)
     phase_build()
+    clock("[1]-[2]")
     core_rows = phase_kernel_vs_plain(torch)
     phase_card_vs_cpu(torch)
     sparse_launches, main_row = phase_main_path(torch)
+    clock("[3]-[5]")
     dense_rows = phase_dense_kernel_vs_plain(torch)
     phase_dense_card_vs_cpu(torch)
     dense_launches = phase_dense_main_path(torch)
+    clock("[6]-[8]")
     persist_rows = phase_persistent_vs_plain(torch)
     persist_launches, _ = phase_persistent_path(torch)
+    clock("[9]-[10]")
     dm_rows = phase_delivery_merge_vs_plain(torch)
     dm_launches = phase_delivery_merge_path(torch)
+    clock("[11]-[12]")
     probe_rows, probe_counts = phase_probes(torch)
     phase_convergence_sum(torch)
-    phase_timelines_card_vs_cpu(torch)
+    clock("[13]-[14]")
     sched_sparse_launches, _ = phase_scheduled_sparse(torch)
+    clock("[16]")
     sched_dense_launches, _ = phase_dense_timeline(torch)
-    phase_recorder_elastic_card_vs_cpu(torch)
+    clock("[17]")
     elastic_launches, _ = phase_elastic_full_width(torch)
+    clock("[19]")
     phase_recorder_full_width(torch)
+    clock("[20]")
     batched_rows = phase_batched_kernels(torch)
-    ens_dense_launches, ens_card_launches = phase_ensemble_card_vs_cpu(torch)
+    clock("[21]")
     ens_launches, _ = phase_sparse_ensemble_full_width(torch)
-    phase_rapid_card_vs_cpu(torch)
+    clock("[23]")
     phase_rapid_rung(torch)
+    clock("[25]")
     phase_rapid_dense_width(torch)
-    serve_card_launches = phase_serving_card_vs_cpu(torch)
+    clock("[26]")
     serve_launches, _ = phase_serving_main_path(torch, main_row)
+    clock("[28]")
     grow_launches, _ = phase_serving_grow(torch)
+    clock("[29]")
     phase_serving_wire(torch)
-    fleet_card_launches = phase_fleet_card_vs_cpu(torch)
+    clock("[30]")
     fleet_launches, _ = phase_fleet_main_path(torch)
+    clock("[32]")
     fleet_grow_launches, _ = phase_fleet_promotion(torch)
     fleet_load_launches, _ = phase_fleet_load(torch)
+    clock("[33]-[34]")
     shard_row = phase_shard_core_vs_plain(torch)
-    shard_card_launches = phase_shard_card_vs_cpu(torch)
-    shard_launches, shard_path_row = phase_shard_map_path(torch)
+    clock("[36]")
+    shard_launches, shard_path_row = phase_shard_map_path(torch, reps=2)
     shard_row["launches"] = shard_launches
     shard_row["path_ms_per_tick"] = shard_path_row["ms_per_tick"]
+    clock("[38]")
+
+    # Every phase above ran with this process alone on the card. The
+    # checks that time nothing now run in one pool of processes; the
+    # large grid then runs alone again.
+    _free_earlier_phases(torch)
+    pool, results = start_checks()
+    try:
+        checked = {fn: _got(results, "[15]-[37]", _phase, fn)[0] for fn in CHECK_PHASES}
+        ens_dense_launches, ens_card_launches = checked[phase_ensemble_card_vs_cpu]
+        serve_card_launches = checked[phase_serving_card_vs_cpu]
+        fleet_card_launches = checked[phase_fleet_card_vs_cpu]
+        shard_card_launches = checked[phase_shard_card_vs_cpu]
+        say("[15], [18], [22], [24], [27], [31], [37] passed in the check pool")
+        phase_chaos_card_vs_cpu(results)
+        phase_chaos_cli(results)
+        phase_grid_small(results)
+        phase_sweep(results)
+        phase_load(results)
+        pool.close()
+    finally:
+        pool.terminate()
+        pool.join()
+    clock("[15], [18], [22], [24], [27], [31], [37], [39]-[42] (check pool)")
+    phase_grid_large(torch)
+    clock("[41] large grid")
 
     kernels = {
         "kernels": [

@@ -805,14 +805,14 @@ def measure_grow(n0: int = 64, tiers: int = 2, burst: int = 24, **kw) -> dict:
 def measure_load(producers: int = 32, n_members: int = 1024, *,
                  slot_budget: int | None = None, pallas_core: bool = False,
                  batch_ticks: int = 8, capacity: int = 64, settle_s: float = 0.002,
-                 device="cuda") -> dict:
+                 events_per_producer: int = 400, device="cuda") -> dict:
     """The ``--load [producers] [n]`` rung (bench.py::_measure_load): the
     seeded multi-producer wire harness (serve/load.py), honest and
     adversarial loopback-TCP producers with connection churn against one
     live bounded-queue session. Returns the harness's ``kind="load"`` audit
     row. The producers share the session's event loop, which a launch
     holds until its verdicts: ``settle_s`` is the loop's time for them
-    between launches."""
+    between launches; ``events_per_producer`` is each producer's count."""
     import asyncio
 
     from scalecube_cluster_tpu_torch.serve.load import run_load
@@ -823,7 +823,7 @@ def measure_load(producers: int = 32, n_members: int = 1024, *,
             slot_budget=slot_budget or rung_slot_budget(n_members),
             producers=producers,
             adversarial=max(producers // 4, 5),
-            events_per_producer=400,
+            events_per_producer=events_per_producer,
             batch_ticks=batch_ticks,
             capacity=capacity,
             max_pending=4096,

@@ -30,10 +30,12 @@ is what the fleet (serve/fleet.py) steps its tenants through. A fleet's
 fault plan is one plan for every tenant: :func:`expand_plan` gives it the
 universe axis as an expanded view, never B copies.
 
+The chaos harness (testlib/chaos.py) and the sweep command
+(experiments/sweep.py) step their seed matrices through these runners.
 Not ported yet (ROADMAP Queue A; the runners raise
-``NotImplementedError``): flight-recorder rings inside an ensemble (A14),
-elastic Rapid stacks, zone worlds and tracked user gossip in ensembles,
-chaos / sweep (A14) and the universe mesh (A15).
+``NotImplementedError``): flight-recorder rings inside an ensemble, elastic
+Rapid stacks, zone worlds and tracked user gossip in ensembles (A14c), and
+the universe mesh (A15b).
 """
 
 from __future__ import annotations

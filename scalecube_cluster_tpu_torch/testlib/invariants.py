@@ -4,8 +4,9 @@ invariants.py: the SWIM part, ``REQUIRED_KEYS``, :func:`heal_bound`,
 :func:`certify_traces`, :func:`certify_heal` and the batched
 :func:`certify_population` that obs/ensemble.py reports, and the Rapid
 part, :func:`r5_bound`, :func:`certify_rapid_traces` and
-:func:`certify_rapid_population`; the zone and promotion certifiers wait
-for ROADMAP A14).
+:func:`certify_rapid_population`, the zone part, :func:`z1_recover_bound`,
+:func:`zone_heal_bound` and :func:`certify_zone_traces`, and the
+promotion certifier :func:`certify_promotion`).
 
 C1  Counter conservation — ``link_attempts == link_delivered +
     fault_blocked + fault_lost`` at every tick.
@@ -42,12 +43,14 @@ R5  Liveness under the fallback — every detected cut commits a view change
     for every run).
 
 Violations raise :class:`InvariantViolation` with the failing tick and
-values. Numpy only: callers read the traces back first.
+values. The trace certifiers are numpy only: callers read the traces
+back first. :func:`certify_promotion` reads the two states back itself.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from scalecube_cluster_tpu_torch.sim.params import SimParams
 
@@ -548,3 +551,273 @@ def certify_heal(
             f"convergence {final_convergence:.4f} < 1.0 after "
             f"{tail} clean ticks (bound {heal_bound(params)})",
         )
+
+
+# ---------------------------------------------------------------- Z1-Z3
+# Geo graceful-degradation invariants, certified from the per-zone gauges
+# a LinkWorld-bearing scheduled run emits (sim/topology.py::
+# zone_tick_metrics -> ``zone_intra_conv`` [T, Z], ``zone_false_dead``
+# [T, Z], ``zone_intra_suspects`` [T, Z]):
+#
+# Z1  Brownout tolerance — a pure-latency inter-zone brownout (no block,
+#     no loss anywhere in the window) may raise suspicions (inflated
+#     round-trip draws race the probe deadline) but must never convert
+#     one into a DEAD verdict about a zone-mate: ``zone_false_dead`` is 0
+#     in every zone at every brownout tick, and intra-zone convergence
+#     returns to 1.0 within :func:`z1_recover_bound` of the window's end
+#     (suspect records refute instead of sweeping to tombstones).
+# Z2  Split containment — during a cross-zone split (zone-level blocks),
+#     a CLEAN zone (no intra-zone edge disturbed) never produces a false
+#     DEAD verdict about its OWN members: ``zone_false_dead[t, z] == 0``
+#     for every clean zone z across the split window. The splitter side
+#     may legitimately tombstone the far side; its own rack stays sane.
+# Z3  Zone-aware heal — once the timeline goes permanently clean, every
+#     zone's intra-zone convergence returns to 1.0 (and false-dead to 0)
+#     within :func:`zone_heal_bound` — the flat C7 bound plus one sync
+#     period per zone, covering the anti-entropy rounds cross-zone
+#     re-seeding needs after a split tore the rumor paths.
+
+ZONE_KEYS = ("zone_intra_conv", "zone_false_dead", "zone_intra_suspects")
+
+
+def _get_zone(traces: dict, key: str) -> np.ndarray:
+    if key not in traces:
+        raise InvariantViolation(
+            "schema",
+            f"zone certification needs {key!r} — run a FaultSchedule with "
+            "a LinkWorld attached (collect=True); got keys "
+            f"{sorted(traces)}",
+        )
+    arr = np.asarray(traces[key])
+    if arr.ndim != 2:
+        raise InvariantViolation(
+            "schema", f"{key!r} must be [ticks, zones]; got {arr.shape}"
+        )
+    return arr
+
+
+def z1_recover_bound(params: SimParams) -> int:
+    """Ticks after a pure-latency brownout ends within which every zone's
+    intra-zone convergence must be 1.0 again (Z1). Worst case: a suspicion
+    armed on the last brownout tick refutes on the next successful probe
+    round (the suspect re-asserts with a bumped incarnation), and the
+    refutation rumor crosses the zone within a spread window; the cushion
+    absorbs FD-cadence phase."""
+    return (
+        params.suspicion_ticks
+        + 2 * params.fd_period_ticks
+        + params.periods_to_spread
+        + 20
+    )
+
+
+def zone_heal_bound(params: SimParams, n_zones: int) -> int:
+    """Z3: the zone-aware heal deadline. The flat :func:`heal_bound` chain
+    (suspicion run-out, tombstone sweep, rumor spread, SYNC repair) plus
+    one anti-entropy SYNC period per zone — after a split, cross-zone
+    records re-enter through pairwise syncs, and a Z-zone world needs up
+    to Z such rounds before every zone has re-seeded every other."""
+    return heal_bound(params) + n_zones * params.sync_period_ticks
+
+
+def certify_zone_traces(
+    params: SimParams,
+    traces: dict,
+    *,
+    brownout: tuple[int, int] | None = None,
+    split: tuple[int, int] | None = None,
+    clean_zones=None,
+    heal_start: int | None = None,
+    context: str = "",
+) -> dict:
+    """Certify the Z1-Z3 graceful-degradation invariants of one
+    LinkWorld-bearing scheduled trajectory.
+
+    ``brownout`` / ``split`` are ``[start, end)`` tick windows of the
+    schedule's latency-only and zone-block segments (the caller built the
+    timeline, so it knows the windows); ``clean_zones`` names the zones
+    whose intra-zone edges the split leaves undisturbed (default: all
+    zones — correct for pure cross-zone splits). ``heal_start`` is the
+    first permanently-clean tick; Z3 is skipped (parked, like R5's
+    open-deadline cuts) when ``heal_start + zone_heal_bound`` reaches past
+    the trace end. Returns a summary dict; raises
+    :class:`InvariantViolation` at the first breach."""
+    conv = _get_zone(traces, "zone_intra_conv")
+    false_dead = _get_zone(traces, "zone_false_dead")
+    suspects = _get_zone(traces, "zone_intra_suspects")
+    ticks, n_zones = conv.shape
+    ctx = f" [{context}]" if context else ""
+    summary: dict = {
+        "ticks": ticks,
+        "n_zones": n_zones,
+        "max_intra_suspects": int(suspects.max()) if suspects.size else 0,
+        "z1_checked": False,
+        "z2_checked": False,
+        "z3_checked": False,
+    }
+
+    if brownout is not None:
+        b0, b1 = int(brownout[0]), int(min(brownout[1], ticks))
+        bad = np.argwhere(false_dead[b0:b1] > 0)
+        if bad.size:
+            t, z = int(bad[0][0]) + b0, int(bad[0][1])
+            raise InvariantViolation(
+                "Z1-brownout-verdict",
+                f"tick {t}: zone {z} holds {int(false_dead[t, z])} false "
+                f"DEAD record(s) for live zone-mates during a pure-latency "
+                f"brownout — latency alone must never tombstone{ctx}",
+            )
+        recover_by = b1 + z1_recover_bound(params)
+        if recover_by < ticks:
+            window = conv[b1 : recover_by + 1]
+            if not np.any(np.all(window >= 1.0, axis=1)):
+                worst = int(np.argmin(window.min(axis=1)))
+                raise InvariantViolation(
+                    "Z1-brownout-recovery",
+                    f"no tick in [{b1}, {recover_by}] has every zone's "
+                    f"intra convergence at 1.0 (worst tick {b1 + worst}: "
+                    f"{window[worst].min():.4f}) — brownout suspicions "
+                    f"must refute within the budget{ctx}",
+                )
+        summary["z1_checked"] = True
+        summary["z1_recover_by"] = b1 + z1_recover_bound(params)
+
+    if split is not None:
+        s0, s1 = int(split[0]), int(min(split[1], ticks))
+        zones = (
+            list(range(n_zones)) if clean_zones is None else list(clean_zones)
+        )
+        seg = false_dead[s0:s1][:, zones]
+        bad = np.argwhere(seg > 0)
+        if bad.size:
+            t, zi = int(bad[0][0]) + s0, zones[int(bad[0][1])]
+            raise InvariantViolation(
+                "Z2-clean-zone-verdict",
+                f"tick {t}: clean zone {zi} holds "
+                f"{int(false_dead[t, zi])} false DEAD record(s) for its "
+                f"own live members during a cross-zone split{ctx}",
+            )
+        summary["z2_checked"] = True
+
+    if heal_start is not None:
+        deadline = int(heal_start) + zone_heal_bound(params, n_zones)
+        if deadline < ticks:
+            tail_conv = conv[deadline:]
+            tail_dead = false_dead[deadline:]
+            if not (np.all(tail_conv >= 1.0) and np.all(tail_dead == 0)):
+                bad_t = deadline + int(
+                    np.argmax(
+                        np.any(tail_conv < 1.0, axis=1)
+                        | np.any(tail_dead > 0, axis=1)
+                    )
+                )
+                raise InvariantViolation(
+                    "Z3-zone-heal",
+                    f"tick {bad_t}: zone state not healed past the "
+                    f"deadline {deadline} (bound "
+                    f"{zone_heal_bound(params, n_zones)}): intra conv "
+                    f"{conv[bad_t].min():.4f}, false dead "
+                    f"{int(false_dead[bad_t].max())}{ctx}",
+                )
+            summary["z3_checked"] = True
+        summary["z3_deadline"] = deadline
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# Elastic membership: geometry-promotion certification (P1-P3)
+
+
+def certify_promotion(params_old, state_old, params_new, state_new) -> dict:
+    """Certify one capacity-tier promotion (sim/checkpoint.py::
+    promote_sparse_state or serve/bridge.py::ServeBridge.promote) against the bit-exact
+    resume contract:
+
+    - **P1 live-row bit-exactness** — every state leaf's ``[:n_old]`` rows
+      (and the ``[:n_old, :n_old]`` view corner) carry VERBATIM into the
+      promoted state: views, slab working set including the suspicion and
+      incarnation planes, slot tables, user-gossip planes, tick, rng. A
+      promotion must be invisible to the protocol on live rows.
+    - **P2 capacity-row inertness** — every new row is the init-time masked
+      form: UNKNOWN along both view axes, dead, stale slab lanes,
+      ``live_mask`` False. A promotion must not manufacture identities.
+    - **P3 recorder continuity** — when both states carry a flight
+      recorder, the event log and cursor carry verbatim (ring positions
+      stable, so recorded cause chains survive) and the causal registers'
+      old rows carry verbatim.
+
+    Raises :class:`InvariantViolation` at the first breach; returns a
+    summary dict on success.
+    """
+    n_old, n_new = params_old.base.n, params_new.base.n
+    if n_new <= n_old:
+        raise InvariantViolation(
+            "P1-geometry", f"promotion must grow: {n_old} -> {n_new}"
+        )
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def p1(name, a, b):
+        if not np.array_equal(a, b):
+            raise InvariantViolation(
+                "P1-live-rows", f"{name}: old rows not bit-exact across promotion"
+            )
+
+    def p2(name, ok):
+        if not ok:
+            raise InvariantViolation(
+                "P2-capacity-rows", f"{name}: new capacity rows are not inert"
+            )
+
+    so, sn = state_old, state_new
+    view_o, view_n = host(so.view_T), host(sn.view_T)
+    p1("view_T", view_o, view_n[:n_old, :n_old])
+    p2("view_T", bool(np.all(view_n[n_old:, :] == -1))
+       and bool(np.all(view_n[:, n_old:] == -1)))
+    p1("slot_subj", host(so.slot_subj), host(sn.slot_subj))
+    subj_slot_n = host(sn.subj_slot)
+    p1("subj_slot", host(so.subj_slot), subj_slot_n[:n_old])
+    p2("subj_slot", bool(np.all(subj_slot_n[n_old:] == -1)))
+    for name in ("slab", "age", "susp", "inc_self", "epoch", "alive",
+                 "useen", "uage", "uinf_ids", "uptr"):
+        p1(name, host(getattr(so, name)), host(getattr(sn, name))[:n_old])
+    alive_n = host(sn.alive)
+    p2("alive", bool(not np.any(alive_n[n_old:])))
+    lm_o = host(so.live_mask) if so.live_mask is not None else np.ones(n_old, bool)
+    lm_n = host(sn.live_mask)
+    p1("live_mask", lm_o, lm_n[:n_old])
+    p2("live_mask", bool(not np.any(lm_n[n_old:])))
+    p1("tick", host(so.tick), host(sn.tick))
+    p1("rng", host(so.rng), host(sn.rng))
+    for name in ("lat_first_suspect", "lat_first_dead"):
+        a = getattr(so, name)
+        if a is not None:
+            p1(name, host(a), host(getattr(sn, name))[:n_old])
+
+    summary = {
+        "n_old": int(n_old),
+        "n_new": int(n_new),
+        "n_live": int(lm_n.sum()),
+        "tick": int(host(sn.tick)),
+        "p3_checked": False,
+    }
+    if so.trace is not None and sn.trace is not None:
+        ro, rn = so.trace, sn.trace
+        for name in ("ev_kind", "ev_tick", "ev_actor", "ev_subject",
+                     "ev_cause", "ev_aux", "cursor", "overflow"):
+            if not np.array_equal(host(getattr(ro, name)), host(getattr(rn, name))):
+                raise InvariantViolation(
+                    "P3-recorder",
+                    f"trace {name}: event log not verbatim across promotion "
+                    "(ring positions must stay stable for cause chains)",
+                )
+        for name in ("last_miss", "origin"):
+            if not np.array_equal(host(getattr(ro, name)),
+                                  host(getattr(rn, name))[:n_old]):
+                raise InvariantViolation(
+                    "P3-recorder",
+                    f"trace {name}: old rows not carried across promotion",
+                )
+        summary["p3_checked"] = True
+    return summary

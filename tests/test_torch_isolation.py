@@ -60,7 +60,10 @@ def test_sources_exist():
                    "transport/api.py", "transport/codec.py", "transport/message.py",
                    "transport/tcp.py", "native/__init__.py", "utils/__init__.py",
                    "utils/address.py", "utils/ids.py", "utils/streams.py",
-                   "parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py"):
+                   "parallel/__init__.py", "parallel/mesh.py", "parallel/spmd.py",
+                   "testlib/chaos.py", "testlib/donation.py", "experiments/__init__.py",
+                   "experiments/__main__.py", "experiments/scenarios.py",
+                   "experiments/chaos.py", "experiments/sweep.py", "experiments/load.py"):
         assert f"scalecube_cluster_tpu_torch/{module}" in names, module
     assert "chip_smoke.py" in names
     assert (PORT / "native" / "framing.c").is_file()
